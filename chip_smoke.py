@@ -1,0 +1,379 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (palette_and_histo_gan_tpu_torch) on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+  1. device: the card's name and power limit (nvidia-smi), torch and CUDA
+     versions; exits 1 without a CUDA device.
+  2. build: compiles the fused augmentation kernel (csrc/augment.cu) with
+     nvcc for sm_90a from this checkout.
+  3. kernel vs plain: every input format x float32/bfloat16 output x
+     normalize on/off, at B=4 and B=1024, on the same draws; float32 within
+     5e-4 on the 0-255 scale, bfloat16 within one bfloat16 ulp beyond that
+     float32 tolerance. Times both at the main path's shapes with CUDA
+     events.
+  4. parity: two full-width float32 histogram-variant steps on the card
+     (kernel path) against the same steps on the CPU (plain path), from the
+     same weights on the same batches, deterministic dropout and no
+     augmentation draws kept (the kernel only normalizes); losses within
+     rtol 1e-3.
+  5. main path: a full-width float32 histogram-variant Trainer, batch 4, on
+     a seeded synthetic sprite set of 250 train / 44 test pairs;
+     fit(steps=8, update_steps=4) with the L1 report, then one single step
+     (make_train_step) on a uint8 batch. The kernel launch counts are set
+     to 0 before and read after; each must be at least 1, the chunk's at
+     least 8.
+  6. timed chunks, each after a 2-step warm-up, through Trainer.fit at
+     full width: float32 batch 4 (40 steps) and bfloat16 batch 1024
+     (10 steps); finite losses, ms/step, img/s, peak device memory.
+
+The last three lines of standard output are the kernels' JSON record, the
+card's name and power limit as nvidia-smi reports them, and
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 47
+F32_TOL = 5e-4  # on the 0-255 scale (palette_and_histo_gan_tpu/ops/augment_pallas.py:67-68)
+PARITY_RTOL = 1e-3
+SOURCE = "palette_and_histo_gan_tpu_torch/csrc/augment.cu"
+REPLACES = {
+    "packed": "palette_and_histo_gan_tpu/ops/augment_pallas.py:273",
+    "rgba": "palette_and_histo_gan_tpu/ops/augment_pallas.py:119",
+}
+# logs of the smoke's Trainers go under a folder .gitignore lists
+TEMP_FOLDER = os.path.join("build", "chip_smoke")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def log(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+# ---------------------------------------------------------------- kernels
+
+
+def kernel_inputs(fmt: str, b: int, device, seed: int):
+    """Source and target of one input format, from seeded uint8 pixels."""
+    from palette_and_histo_gan_tpu_torch.train.steps import pack_rows
+
+    rng = np.random.default_rng(seed)
+    pair = [
+        torch.from_numpy(rng.integers(0, 256, (b, 64, 64, 4), dtype=np.uint8)).to(device)
+        for _ in range(2)
+    ]
+    if fmt == "packed":
+        return [pack_rows(x) for x in pair]
+    return pair if fmt == "u8" else [x.float() for x in pair]
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor, atol: float) -> float:
+    """Largest |a - b| beyond `atol`, in units of the bfloat16 ulp of the
+    larger of the two magnitudes (8 significant bits: ulp = 2^(e - 8) for
+    |v| = m 2^e, m in [0.5, 1)). `atol` is the float32 tolerance: where
+    the normalize cancels to near 0 (v / 127.5 - 1 for v near 127.5), the
+    two float32 values before the round may differ by a float32 ulp of 1,
+    which is many bfloat16 ulps of the tiny result."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    _, exp = torch.frexp(mag)
+    ulp = torch.ldexp(torch.ones_like(mag), exp - 8)
+    return float(((a - b).abs() - atol).clamp_min(0.0).div(ulp).max())
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean milliseconds a call over `iters` calls, after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_kernel_vs_plain(device) -> dict:
+    """Kernel against plain version on every case; times at the main
+    path's shapes. Returns per kernel entry its worst float32 error (0-255
+    scale) and its times."""
+    from palette_and_histo_gan_tpu_torch.ops import augment, augment_kernel
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    worst = {"packed": 0.0, "rgba": 0.0}
+    for b in (4, 1024):
+        draws = augment.draw_params(gen, b, 0.8)
+        for fmt in ("packed", "u8", "f32"):
+            src, tgt = kernel_inputs(fmt, b, device, SEED + b)
+            entry = "packed" if fmt == "packed" else "rgba"
+            for out_dtype in (torch.float32, torch.bfloat16):
+                for normalize_out in (False, True):
+                    kw = dict(normalize_out=normalize_out, out_dtype=out_dtype)
+                    got = augment_kernel.augment_cuda(src, tgt, *draws, **kw)
+                    ref = augment.augment_plain(src, tgt, *draws, **kw)
+                    torch.cuda.synchronize()
+                    for g, r in zip(got, ref):
+                        if g.shape != (b, 64, 64, 4) or g.dtype != out_dtype:
+                            raise AssertionError(f"kernel output {g.dtype} {tuple(g.shape)}")
+                    name = f"B={b} {fmt} -> {str(out_dtype)[6:]} normalize={normalize_out}"
+                    scale = 127.5 if normalize_out else 1.0
+                    err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+                    if out_dtype == torch.float32:
+                        ok = err * scale <= F32_TOL
+                        worst[entry] = max(worst[entry], err * scale)
+                        log("kernel", f"{name}: max|kernel - plain| {err * scale:.3e} "
+                            f"(0-255 scale, tol {F32_TOL})")
+                    else:
+                        ulps = max(bf16_ulps(g, r, F32_TOL / scale) for g, r in zip(got, ref))
+                        ok = ulps <= 1.0
+                        log("kernel", f"{name}: max|kernel - plain| {err:.3e}, {ulps:.3f} bf16 ulp "
+                            f"beyond {F32_TOL / scale:.2e} (tol 1 ulp)")
+                    if not ok:
+                        raise AssertionError(f"kernel disagrees with plain version: {name}")
+    torch.cuda.synchronize()
+
+    # times at the main path's shapes: batch 1024 to bfloat16 (the bf16
+    # cell) and batch 4 to float32 (the reference regime), normalize on;
+    # plain, kernel, kernel, plain, each the mean of its two runs
+    times = {}
+    for b, out_dtype, iters in ((1024, torch.bfloat16, 50), (4, torch.float32, 200)):
+        draws = augment.draw_params(gen, b, 0.8)
+        for fmt, entry in (("packed", "packed"), ("u8", "rgba")):
+            src, tgt = kernel_inputs(fmt, b, device, SEED)
+            kw = dict(normalize_out=True, out_dtype=out_dtype)
+
+            def kern():
+                augment_kernel.augment_cuda(src, tgt, *draws, **kw)
+
+            def plain():
+                augment.augment_plain(src, tgt, *draws, **kw)
+
+            p1, k1, k2, p2 = (cuda_ms(f, iters) for f in (plain, kern, kern, plain))
+            times[(entry, b)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            log(
+                "kernel",
+                f"time B={b} {fmt} -> {str(out_dtype)[6:]}: kernel {k1:.4f} / {k2:.4f} ms, "
+                f"plain {p1:.4f} / {p2:.4f} ms",
+            )
+    return {"worst": worst, "times": times}
+
+
+# ------------------------------------------------------------ train steps
+
+
+def synthetic_datasets(config, device):
+    from palette_and_histo_gan_tpu_torch.data import datasets_from_arrays, synthetic_arrays
+
+    return datasets_from_arrays(*synthetic_arrays(config, SEED), device)
+
+
+def check_finite(metrics: dict, what: str) -> None:
+    bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"{what}: non-finite metrics {bad}")
+
+
+def phase_parity(device, config_overrides: dict) -> float:
+    """Two float32 steps on `device` against the same two on the CPU, from
+    the same weights; returns the worst relative loss difference."""
+    from palette_and_histo_gan_tpu_torch import config_for_variant
+    from palette_and_histo_gan_tpu_torch.train import create_train_state, make_train_step
+    from palette_and_histo_gan_tpu_torch.train.steps import pack_rows
+
+    config = config_for_variant(
+        "histogram", deterministic_dropout=True, augment_probability=0.0,
+        temp_folder=TEMP_FOLDER, **config_overrides,
+    )
+    ref = create_train_state(config, "cpu", SEED)
+    dev = create_train_state(config, device, SEED)
+    dev.generator.load_state_dict(ref.generator.state_dict())
+    dev.discriminator.load_state_dict(ref.discriminator.state_dict())
+    step = make_train_step(config)
+    rng = np.random.default_rng(SEED)
+    worst = 0.0
+    for i in range(2):
+        src, tgt = (
+            pack_rows(torch.from_numpy(
+                rng.integers(0, 256, (config.batch_size, 64, 64, 4), dtype=np.uint8)
+            ))
+            for _ in range(2)
+        )
+        m_ref = {k: float(v) for k, v in step(ref, src, tgt).items()}
+        m_dev = {k: float(v) for k, v in step(dev, src.to(device), tgt.to(device)).items()}
+        check_finite(m_dev, "parity step")
+        for k in m_ref:
+            rel = abs(m_dev[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-12)
+            worst = max(worst, rel)
+            log("parity", f"step {i} {k}: {device.type} {m_dev[k]:.7g}  cpu {m_ref[k]:.7g}  rel {rel:.2e}")
+    if worst > PARITY_RTOL:
+        raise AssertionError(f"card and CPU steps differ by {worst:.2e} > {PARITY_RTOL}")
+    return worst
+
+
+def phase_main_path(device, config_overrides: dict, steps=8, update_steps=4) -> dict:
+    """The Trainer's fit and one single step on a uint8 batch; returns the
+    launch counts of that run."""
+    from palette_and_histo_gan_tpu_torch import config_for_variant
+    from palette_and_histo_gan_tpu_torch.data import batch_indices
+    from palette_and_histo_gan_tpu_torch.ops import augment_kernel
+    from palette_and_histo_gan_tpu_torch.train import make_train_step
+    from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
+
+    config = config_for_variant("histogram", temp_folder=TEMP_FOLDER, **config_overrides)
+    trainer = Trainer(config, device, synthetic_datasets(config, device))
+    log("main", f"train {trainer.train_ds.n} / test {trainer.test_ds.n} pairs, batch {config.batch_size}, {config.compute_dtype}")
+
+    augment_kernel.reset_launches()
+    trainer.fit(steps=steps, update_steps=update_steps, callbacks=["evaluate_l1"])
+    # the single-step entry point on a gathered uint8 batch
+    idx = batch_indices(SEED, trainer.state.step, trainer.train_ds.n, config.batch_size, device)
+    single = make_train_step(config)(
+        trainer.state, trainer.train_ds.sources[idx], trainer.train_ds.targets[idx]
+    )
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(augment_kernel.launches)
+
+    for i, row in enumerate(trainer.history):
+        check_finite(row, f"step {i}")
+        log(
+            "main",
+            f"step {i}: G total {row['generator/total_loss']:.5f}  "
+            f"G hellinger {row['generator/histogram_loss']:.5f}  "
+            f"D total {row['discriminator/total_loss']:.5f}",
+        )
+    single = {k: float(v) for k, v in single.items()}
+    check_finite(single, "single step")
+    log("main", f"single step on uint8: G total {single['generator/total_loss']:.5f}  D total {single['discriminator/total_loss']:.5f}")
+    l1_train, l1_test = trainer.report_l1()
+    if not all(math.isfinite(v) and 0.0 <= v <= 2.0 for v in (l1_train, l1_test)):
+        raise AssertionError(f"L1 report out of range: {l1_train}, {l1_test}")
+    log("main", f"L1 train {l1_train:.5f}  test {l1_test:.5f}")
+    if len(trainer.history) != steps or trainer.state.step != steps + 1:
+        raise AssertionError(f"{len(trainer.history)} steps logged, state at {trainer.state.step}")
+    log("main", f"augment launches in this run: {launches}")
+    if device.type == "cuda" and (launches["packed"] < steps or launches["rgba"] < 1):
+        raise AssertionError(f"the main path did not run the kernel: {launches}")
+    return launches
+
+
+def phase_timed_chunk(device, compute_dtype: str, config_overrides: dict, steps: int) -> dict:
+    """One chunk of `steps` steps through Trainer.fit after a 2-step
+    warm-up; returns ms/step, img/s and the peak device memory."""
+    from palette_and_histo_gan_tpu_torch import config_for_variant
+    from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
+
+    config = config_for_variant(
+        "histogram", compute_dtype=compute_dtype, temp_folder=TEMP_FOLDER, **config_overrides
+    )
+    trainer = Trainer(config, device, synthetic_datasets(config, device))
+    trainer.fit(steps=2, update_steps=2)  # warm-up: cuDNN plans, allocator
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    before = trainer.phase_seconds["train_chunk"]
+    trainer.fit(steps=steps, update_steps=steps)
+    seconds = trainer.phase_seconds["train_chunk"] - before
+    for row in trainer.history:
+        check_finite(row, f"{compute_dtype} chunk")
+    last = trainer.history[-1]
+    out = {
+        "ms_per_step": 1e3 * seconds / steps,
+        "img_per_s": config.batch_size * steps / seconds,
+        "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else float("nan"),
+    }
+    log(
+        "timed",
+        f"{compute_dtype} batch {config.batch_size}, {steps} steps in {seconds:.4f} s: "
+        f"{out['ms_per_step']:.3f} ms/step, {out['img_per_s']:.1f} img/s, "
+        f"peak {out['peak_gib']:.2f} GiB; last step G total "
+        f"{last['generator/total_loss']:.5f} D total {last['discriminator/total_loss']:.5f}",
+    )
+    return out
+
+
+# ------------------------------------------------------------------- main
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: PyTorch sees no CUDA device; this smoke runs only on a GPU",
+              file=sys.stderr)
+        return 1
+    from palette_and_histo_gan_tpu_torch import set_f32_parity_mode
+    from palette_and_histo_gan_tpu_torch.kernels import build
+    from palette_and_histo_gan_tpu_torch.ops import augment_kernel
+
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log("device", f"{card}; {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    augment_kernel.library()
+    log("build", f"augment.cu -> sm_90a: nvcc {build.build_seconds.get('phg_augment', 0.0):.2f} s "
+        f"(0 when already built), load {time.perf_counter() - t0:.2f} s")
+
+    kern = phase_kernel_vs_plain(device)
+
+    set_f32_parity_mode()
+    worst = phase_parity(device, dict(batch_size=4))
+    log("parity", f"worst relative loss difference {worst:.2e} (tol {PARITY_RTOL})")
+
+    launches = phase_main_path(device, dict(batch_size=4))
+    f32 = phase_timed_chunk(device, "float32", dict(batch_size=4), steps=40)
+    bf16 = phase_timed_chunk(device, "bfloat16", dict(batch_size=1024), steps=10)
+    if "jax" in sys.modules:
+        raise AssertionError("the port loaded jax")
+
+    kernels = []
+    for entry in ("packed", "rgba"):
+        ms, plain_ms = kern["times"][(entry, 1024)]
+        kernels.append({
+            "name": f"augment_{entry}",
+            "route": "cuda",
+            "source": SOURCE,
+            "replaces": REPLACES[entry],
+            "launches": launches[entry],
+            "max_abs_err": kern["worst"][entry],
+            "ms": ms,
+            "plain_ms": plain_ms,
+        })
+    log("summary", f"{card}: b4 kernel/plain ms "
+        + ", ".join(f"{e} {kern['times'][(e, 4)][0]:.4f}/{kern['times'][(e, 4)][1]:.4f}" for e in ("packed", "rgba"))
+        + f"; f32 b4 {f32['ms_per_step']:.3f} ms/step {f32['img_per_s']:.1f} img/s"
+        + f"; bf16 b1024 {bf16['ms_per_step']:.3f} ms/step {bf16['img_per_s']:.1f} img/s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                   "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,233 @@
+"""U-Net generator and PatchGAN discriminator as `nn.Module`s.
+
+Mirrors palette_and_histo_gan_tpu/models/networks.py (the reference's
+networks.py:7-98):
+  * DownBlock: conv k4 s2 SAME, no bias, [InstanceNorm], LeakyReLU 0.3;
+  * UpBlock: transposed conv k4 s2 SAME, no bias, InstanceNorm,
+    [dropout 0.5], ReLU;
+  * UnetGenerator: six down, six up, the raw input as the last skip
+    (:539-622), head conv k4 s1 SAME with bias, tanh;
+  * PatchDiscriminator: concat([target, source]), one no-norm DownBlock(64),
+    head conv k4 s1 SAME with bias, (B, 32, 32, 1) patch logits (:625-666).
+
+The public forwards take and return NHWC like the JAX package; inside, the
+tensors are NCHW views of the NHWC memory (channels-last strides).
+Parameters stay float32; `dtype` (float32 or bfloat16) is the
+compute type of the convolutions and activations, as flax's `dtype=` is.
+Kernels are initialized N(0, 0.02) from an explicit generator.
+
+The TPU package's alternative lowerings of the same convolutions
+(flip-grad and swap-grad weight gradients, padded or duplicated heads,
+subpixel transposed conv) compute the same function and are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LEAKY_RELU_SLOPE = 0.3  # keras LeakyReLU default
+INSTANCE_NORM_EPS = 1e-3  # tensorflow_addons InstanceNormalization default
+CONV_INIT_STD = 0.02
+DROPOUT_RATE = 0.5
+
+
+class InstanceNorm(nn.Module):
+    """Per-(sample, channel) normalization over H, W with learned scale and
+    offset (networks.py:147-180). In bfloat16 the elementwise passes stay
+    bfloat16 and the statistics accumulate in float32 by the single-pass
+    E[x^2] - E[x]^2 form, as the JAX package does."""
+
+    def __init__(self, features: int, eps: float = INSTANCE_NORM_EPS):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.offset = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, C, H, W)
+        gamma = self.scale.view(1, -1, 1, 1)
+        beta = self.offset.view(1, -1, 1, 1)
+        if x.dtype == torch.bfloat16:
+            mean = x.mean((2, 3), keepdim=True, dtype=torch.float32)
+            mean2 = torch.square(x).mean((2, 3), keepdim=True, dtype=torch.float32)
+            var = torch.clamp_min(mean2 - torch.square(mean), 0.0)
+            inv = torch.rsqrt(var + self.eps)
+            scale = (gamma * inv).to(x.dtype)
+            offset = (beta - mean * gamma * inv).to(x.dtype)
+            return x * scale + offset
+        x32 = x.float()
+        mean = x32.mean((2, 3), keepdim=True)
+        var = x32.var((2, 3), keepdim=True, unbiased=False)
+        normed = (x32 - mean) * torch.rsqrt(var + self.eps)
+        return (normed * gamma + beta).to(x.dtype)
+
+
+class DownBlock(nn.Module):
+    """Conv k4 s2 SAME (pad 1 each side) -> [InstanceNorm] -> LeakyReLU."""
+
+    def __init__(self, in_channels: int, filters: int, apply_norm: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(filters, in_channels, 4, 4))
+        self.norm = InstanceNorm(filters) if apply_norm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), stride=2, padding=1)
+        if self.norm is not None:
+            x = self.norm(x)
+        return F.leaky_relu(x, LEAKY_RELU_SLOPE)
+
+
+class UpBlock(nn.Module):
+    """Transposed conv k4 s2 SAME -> InstanceNorm -> [Dropout 0.5] -> ReLU.
+
+    The weight is PyTorch's (in, out, kh, kw). flax's
+    ConvTranspose(transpose_kernel=False) kernel K (kh, kw, in, out) computes
+    the same function as this weight = K[::-1, ::-1].transpose(2, 3, 0, 1)
+    with padding 1 (models/convert.py; pinned in tests)."""
+
+    def __init__(self, in_channels: int, filters: int, apply_dropout: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.apply_dropout = apply_dropout
+        self.weight = nn.Parameter(torch.empty(in_channels, filters, 4, 4))
+        self.norm = InstanceNorm(filters)
+
+    def forward(self, x, generator: torch.Generator | None = None,
+                deterministic: bool = False) -> torch.Tensor:
+        x = F.conv_transpose2d(
+            x.to(self.dtype), self.weight.to(self.dtype), stride=2, padding=1
+        )
+        x = self.norm(x)
+        if self.apply_dropout and not deterministic:
+            if generator is None:
+                raise ValueError("dropout needs an explicit torch.Generator")
+            # flax nn.Dropout: keep with probability 1 - rate, scale by 1/keep
+            keep = torch.rand(x.shape, generator=generator, device=x.device) < (
+                1.0 - DROPOUT_RATE
+            )
+            x = torch.where(keep, x / (1.0 - DROPOUT_RATE), torch.zeros_like(x))
+        return F.relu(x)
+
+
+class HeadConv(nn.Module):
+    """Conv k4 s1 SAME with bias. SAME pads a k4 window asymmetrically,
+    1 before and 2 after each spatial axis, hence the explicit F.pad."""
+
+    def __init__(self, in_channels: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_channels, 4, 4))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.pad(x.to(self.dtype), (1, 2, 1, 2))
+        return F.conv2d(x, self.weight.to(self.dtype), self.bias.to(self.dtype))
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's initialization: conv kernels N(0, 0.02), biases
+    and norm offsets 0, norm scales 1; kernels drawn from `generator`."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "weight":
+                p.normal_(0.0, CONV_INIT_STD, generator=generator)
+            elif leaf == "scale":
+                p.fill_(1.0)
+            else:  # bias, offset
+                p.zero_()
+
+
+class UnetGenerator(nn.Module):
+    """6-down/6-up U-Net with the raw input as the last skip."""
+
+    def __init__(
+        self,
+        input_channels: int = 4,
+        output_channels: int = 4,
+        last_activation: str = "tanh",
+        dtype: torch.dtype = torch.float32,
+        down_filters: Sequence[int] = (64, 128, 256, 512, 512, 512),
+        up_filters: Sequence[int] = (512, 512, 256, 128, 64, 32),
+    ):
+        super().__init__()
+        if last_activation not in ("tanh", "linear"):
+            raise NotImplementedError(
+                f"last_activation={last_activation!r}: the softmax head belongs "
+                "to the indexed model, not ported yet (ROADMAP.md)"
+            )
+        self.last_activation = last_activation
+        self.down = nn.ModuleList()
+        cin = input_channels
+        for i, f in enumerate(down_filters):
+            self.down.append(DownBlock(cin, f, apply_norm=i != 0, dtype=dtype))
+            cin = f
+        skip_widths = list(reversed(down_filters[:-1])) + [input_channels]
+        self.up = nn.ModuleList()
+        for i, f in enumerate(up_filters):
+            self.up.append(UpBlock(cin, f, apply_dropout=i < 3, dtype=dtype))
+            cin = f + skip_widths[i]
+        self.head = HeadConv(cin, output_channels, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                deterministic: bool = False) -> torch.Tensor:
+        """(B, 64, 64, C) NHWC -> (B, 64, 64, out) float32 NHWC."""
+        x = _nchw(x)
+        inputs = x
+        skips = []
+        for block in self.down:
+            x = block(x)
+            skips.append(x)
+        skip_sources = list(reversed(skips[:-1])) + [inputs]
+        for block, skip in zip(self.up, skip_sources):
+            x = block(x, generator, deterministic)
+            x = torch.cat([x, skip.to(x.dtype)], dim=1)
+        x = self.head(x)
+        if self.last_activation == "tanh":
+            x = torch.tanh(x.float())
+        return _nhwc(x)
+
+
+class PatchDiscriminator(nn.Module):
+    """Shallow PatchGAN: (B, 64, 64, C) pair -> (B, 32, 32, 1) float32 logits."""
+
+    def __init__(self, input_channels: int = 4, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.down = DownBlock(2 * input_channels, 64, apply_norm=False, dtype=dtype)
+        self.head = HeadConv(64, 1, dtype=dtype)
+
+    def forward(self, target: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
+        # concat order is [target, source] (reference networks.py:45)
+        x = torch.cat([target.to(self.dtype), source.to(self.dtype)], dim=-1)
+        return _nhwc(self.head(self.down(_nchw(x))).float())
+
+
+def build_generator(config, dtype: torch.dtype) -> UnetGenerator:
+    return UnetGenerator(
+        input_channels=config.generator_in_channels,
+        output_channels=config.generator_out_channels,
+        last_activation=config.generator_last_activation,
+        dtype=dtype,
+        down_filters=tuple(config.down_filters),
+        up_filters=tuple(config.up_filters),
+    )
+
+
+def build_discriminator(config, dtype: torch.dtype) -> PatchDiscriminator:
+    return PatchDiscriminator(input_channels=config.discriminator_in_channels, dtype=dtype)

@@ -1,0 +1,201 @@
+"""The PyTorch port's networks and weight bridge against the JAX package's.
+
+* the two layout facts the bridge rests on: flax's k4 s2 SAME transposed
+  conv is PyTorch's with a flipped, transposed kernel and padding 1, and
+  the k4 s1 SAME head pads 1 before and 2 after;
+* the bridge (Flax tree -> state_dict) round trip, and its refusal of
+  missing or unused weights;
+* narrow G and D forwards against the Flax modules on bridged weights
+  (float32, atol 1e-5: same convolutions, summation order aside);
+* the full-width forward against the TF-computed golden fixture
+  networks_rgba.npz through tests/parity_utils.py, with the tolerances of
+  tests/test_parity.py:72-83 (fake 1e-4, D real 1e-4, D fake 5e-4), and the
+  generator, histogram and discriminator losses on it (rtol 1e-4, Hellinger
+  1e-3).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from palette_and_histo_gan_tpu.config import config_for_variant
+from palette_and_histo_gan_tpu.models import networks as jnet
+from palette_and_histo_gan_tpu_torch.models import convert
+from palette_and_histo_gan_tpu_torch.models import networks as tnet
+from palette_and_histo_gan_tpu_torch.ops import histogram as th
+from palette_and_histo_gan_tpu_torch.train import losses as tl
+from tests import parity_utils as pu
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+NARROW = dict(down_filters=(8,) * 6, up_filters=(8,) * 6)
+
+
+def _nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2)
+
+
+def test_conv_transpose_mapping():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 5, 6)).astype(np.float32)
+    k = rng.standard_normal((4, 4, 6, 3)).astype(np.float32)
+    ref = np.asarray(jnet._convt_k4s2_same(jnp.asarray(x), jnp.asarray(k)))
+    out = F.conv_transpose2d(
+        _nchw(x), torch.from_numpy(convert._conv_transpose(k)), stride=2, padding=1
+    ).permute(0, 2, 3, 1)
+    assert out.shape == (2, 10, 10, 3)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+def test_head_conv_pads_one_before_two_after():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 7, 7, 5)).astype(np.float32)
+    k = rng.standard_normal((4, 4, 5, 2)).astype(np.float32)
+    ref = np.asarray(jnet._conv_k4s1_same(jnp.asarray(x), jnp.asarray(k)))
+    head = tnet.HeadConv(5, 2)
+    with torch.no_grad():
+        head.weight.copy_(torch.from_numpy(convert._conv(k)))
+        head.bias.zero_()
+        out = head(_nchw(x)).permute(0, 2, 3, 1)
+        # a symmetric pad of 2 gives one row and column more, shifted
+        sym = F.conv2d(_nchw(x), head.weight, padding=2).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+    assert sym.shape[1] == 8
+    np.testing.assert_allclose(sym[:, 1:, 1:].numpy(), ref, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def narrow_flax():
+    config = config_for_variant("histogram", **NARROW)
+    gen = jnet.build_generator(config)
+    disc = jnet.build_discriminator(config)
+    x = jnp.zeros((1, 64, 64, 4))
+    g = gen.init(jax.random.PRNGKey(1), x, deterministic=True)["params"]
+    d = disc.init(jax.random.PRNGKey(2), x, x)["params"]
+    tree = jax.tree_util.tree_map(np.asarray, (g, d))
+    return config, gen, disc, tree[0], tree[1]
+
+
+def _torch_nets(config, g_tree, d_tree, dtype=torch.float32):
+    g = tnet.build_generator(config, dtype)
+    d = tnet.build_discriminator(config, dtype)
+    convert.load_flax_params(g, d, g_tree, d_tree)
+    return g, d
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, name) if isinstance(v, dict) else {name: np.asarray(v)})
+    return out
+
+
+def test_bridge_round_trip(narrow_flax):
+    config, _, _, g_tree, d_tree = narrow_flax
+    g, d = _torch_nets(config, g_tree, d_tree)
+    back = {}
+    for key, (path, layout) in convert._generator_key_map(6, 6).items():
+        w = g.state_dict()[key].numpy()
+        if layout is convert._conv:
+            w = np.transpose(w, (2, 3, 1, 0))
+        elif layout is convert._conv_transpose:
+            w = np.transpose(w, (2, 3, 0, 1))[::-1, ::-1]
+        back[path] = w
+    flat = _flat(g_tree)
+    assert sorted(back) == sorted(flat)
+    for path, w in flat.items():
+        np.testing.assert_array_equal(back[path], w)
+    np.testing.assert_array_equal(
+        d.state_dict()["down.weight"].numpy(),
+        np.transpose(d_tree["DownBlock_0"]["Conv_0"]["kernel"], (3, 2, 0, 1)),
+    )
+
+
+def test_bridge_refuses_missing_and_unused(narrow_flax):
+    config, _, _, g_tree, d_tree = narrow_flax
+    g = tnet.build_generator(config, torch.float32)
+    missing = {k: v for k, v in g_tree.items() if k != "Conv_0"}
+    with pytest.raises(ValueError, match="no Conv_0/kernel"):
+        convert.generator_state_dict_from_flax(missing, g)
+    extra = dict(g_tree, Extra_0={"kernel": np.zeros(3, np.float32)})
+    with pytest.raises(ValueError, match="unused Flax leaves"):
+        convert.generator_state_dict_from_flax(extra, g)
+
+
+def test_narrow_forward_matches_flax(narrow_flax):
+    config, gen, disc, g_tree, d_tree = narrow_flax
+    g, d = _torch_nets(config, g_tree, d_tree)
+    rng = np.random.default_rng(3)
+    src = rng.uniform(-1, 1, (2, 64, 64, 4)).astype(np.float32)
+    tgt = rng.uniform(-1, 1, (2, 64, 64, 4)).astype(np.float32)
+    fake_j = gen.apply({"params": g_tree}, jnp.asarray(src), deterministic=True)
+    pred_j = disc.apply({"params": d_tree}, jnp.asarray(tgt), jnp.asarray(src))
+    with torch.no_grad():
+        fake_t = g(torch.from_numpy(src), deterministic=True)
+        pred_t = d(torch.from_numpy(tgt), torch.from_numpy(src))
+    assert fake_t.shape == (2, 64, 64, 4) and pred_t.shape == (2, 32, 32, 1)
+    np.testing.assert_allclose(fake_t.numpy(), np.asarray(fake_j), atol=1e-5)
+    np.testing.assert_allclose(pred_t.numpy(), np.asarray(pred_j), atol=1e-5)
+
+
+def test_dropout_is_drawn_from_the_generator(narrow_flax):
+    config, _, _, g_tree, d_tree = narrow_flax
+    g, _ = _torch_nets(config, g_tree, d_tree)
+    x = torch.from_numpy(np.random.default_rng(4).uniform(-1, 1, (2, 64, 64, 4)).astype(np.float32))
+    outs = []
+    with torch.no_grad():
+        for seed in (5, 5, 6):
+            gen = torch.Generator()
+            gen.manual_seed(seed)
+            outs.append(g(x, gen))
+        with pytest.raises(ValueError, match="explicit torch.Generator"):
+            g(x)
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+    assert not torch.equal(outs[0], outs[2])
+
+
+@pytest.fixture(scope="module")
+def golden_rgba():
+    g = np.load(os.path.join(GOLDEN, "networks_rgba.npz"))
+    config = config_for_variant("histogram")
+    gen, disc = _torch_nets(
+        config, pu.flax_generator_params(4, 4), pu.flax_discriminator_params(4)
+    )
+    src, real = torch.from_numpy(g["source"]), torch.from_numpy(g["real"])
+    with torch.no_grad():
+        fake = gen(src, deterministic=True)
+        d_real = disc(real, src)
+        d_fake = disc(fake, src)
+    return g, real, fake, d_real, d_fake
+
+
+def test_full_width_forward_matches_golden(golden_rgba):
+    g, _, fake, d_real, d_fake = golden_rgba
+    np.testing.assert_allclose(fake.numpy(), g["fake"], atol=1e-4)
+    np.testing.assert_allclose(d_real.numpy(), g["d_real"], atol=1e-4)
+    np.testing.assert_allclose(d_fake.numpy(), g["d_fake"], atol=5e-4)
+
+
+def test_full_width_losses_match_golden(golden_rgba):
+    g, real, fake, d_real, d_fake = golden_rgba
+    base = tl.generator_loss(d_fake, fake, real, 100.0)
+    np.testing.assert_allclose(float(base["adversarial_loss"]), g["g_adversarial"], rtol=1e-4)
+    np.testing.assert_allclose(float(base["l1_loss"]), g["g_l1"], rtol=1e-4)
+    np.testing.assert_allclose(float(base["total_loss"]), g["g_total_baseline"], rtol=1e-4)
+    hist = tl.generator_loss(d_fake, fake, real, 30.0)
+    hell = th.hellinger_loss(
+        th.calculate_rgbuv_histogram(real), th.calculate_rgbuv_histogram(fake)
+    )
+    np.testing.assert_allclose(float(hell), g["hellinger"], rtol=1e-3)
+    np.testing.assert_allclose(
+        float(hist["total_loss"] + hell), g["g_total_histogram"], rtol=1e-4
+    )
+    d = tl.discriminator_loss(d_real, d_fake)
+    np.testing.assert_allclose(float(d["real_loss"]), g["d_real_loss"], rtol=1e-4)
+    np.testing.assert_allclose(float(d["fake_loss"]), g["d_fake_loss"], rtol=1e-4)
+    np.testing.assert_allclose(float(d["total_loss"]), g["d_total"], rtol=1e-4)

@@ -1,0 +1,173 @@
+"""The PyTorch port's optimizer, train step and loader against the JAX package's.
+
+* one keras-convention Adam trajectory against `scale_by_keras_adam`
+  (rtol 1e-6: the same float32 formula), and the gap to torch.optim.Adam's
+  eps placement that makes the custom optimizer necessary;
+* three narrow histogram-variant steps with deterministic dropout and
+  augment_probability 0, from the same bridged initialization on the same
+  uint8 batches: per-step losses (rtol 1e-4; float32 on both sides, the
+  conv and histogram sums run in another order) and the parameter deltas
+  after three steps (the difference within 1e-3 of each tensor's delta in
+  Frobenius norm; measured 4.7e-4 at worst. Elementwise the worst entry is
+  ~1% off: Adam's m / (sqrt(v) + eps) turns the summation-order error of a
+  gradient near eps into a large relative error of its update);
+* the loader on a synthetic dataset root (the tests/test_data.py pattern)
+  and the epoch-permutation sampler.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from palette_and_histo_gan_tpu.config import config_for_variant
+from palette_and_histo_gan_tpu.data import loader as jloader
+from palette_and_histo_gan_tpu.train import state as jstate
+from palette_and_histo_gan_tpu.train import steps as jsteps
+from palette_and_histo_gan_tpu_torch import cli as tcli
+from palette_and_histo_gan_tpu_torch.data import loader as tloader
+from palette_and_histo_gan_tpu_torch.models import convert
+from palette_and_histo_gan_tpu_torch.train import state as tstate
+from palette_and_histo_gan_tpu_torch.train import steps as tsteps
+from tests.test_data import _write_synthetic_root
+
+NARROW = dict(down_filters=(8,) * 6, up_filters=(8,) * 6)
+
+
+def test_keras_adam_matches_jax():
+    config = config_for_variant("histogram")
+    rng = np.random.default_rng(0)
+    p0 = rng.standard_normal((64,)).astype(np.float32)
+    grads = [rng.standard_normal((64,)).astype(np.float32) * s for s in (1.0, 0.3)]
+    for g in grads:
+        g[:8] *= 1e-7  # near-zero gradients, where the eps placement matters
+
+    tx = jstate.make_optimizer(config)
+    params, opt = jnp.asarray(p0), tx.init(jnp.asarray(p0))
+    p = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    ours = tstate.KerasAdam([p], lr=config.learning_rate,
+                            betas=(config.beta1, config.beta2), eps=config.adam_eps)
+    q = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    theirs = torch.optim.Adam([q], lr=config.learning_rate,
+                              betas=(config.beta1, config.beta2), eps=config.adam_eps)
+    for g in grads:
+        upd, opt = tx.update(jnp.asarray(g), opt, params)
+        params = optax.apply_updates(params, upd)
+        for param, optimizer in ((p, ours), (q, theirs)):
+            param.grad = torch.from_numpy(g.copy())
+            optimizer.step()
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(params), rtol=1e-6, atol=0)
+    # torch.optim.Adam moves the near-zero-gradient entries much further
+    d_keras = np.abs(np.asarray(params) - p0)[:8]
+    d_torch = np.abs(q.detach().numpy() - p0)[:8]
+    assert np.all(d_torch > 1.5 * d_keras)
+
+
+def _same_init_states(config):
+    models = jstate.build_models(config)
+    jax_state = jstate.create_train_state(config, models, jax.random.PRNGKey(0))
+    state = tstate.create_train_state(config, "cpu", seed=0)
+    convert.load_flax_params(
+        state.generator, state.discriminator,
+        jax.tree_util.tree_map(np.asarray, jax_state.g_params),
+        jax.tree_util.tree_map(np.asarray, jax_state.d_params),
+    )
+    return models, jax_state, state
+
+
+def test_three_histogram_steps_match_jax():
+    config = config_for_variant(
+        "histogram", deterministic_dropout=True, augment_probability=0.0,
+        donate_state=False, **NARROW,
+    )
+    models, jax_state, state = _same_init_states(config)
+    g0 = {k: v.clone() for k, v in state.generator.state_dict().items()}
+    d0 = {k: v.clone() for k, v in state.discriminator.state_dict().items()}
+    jax_g0 = jax.tree_util.tree_map(np.asarray, jax_state.g_params)
+    jax_d0 = jax.tree_util.tree_map(np.asarray, jax_state.d_params)
+
+    jax_step = jsteps.make_train_step(config, models)
+    torch_step = tsteps.make_train_step(config)
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        src = rng.integers(0, 256, (2, 64, 64, 4), dtype=np.uint8)
+        tgt = rng.integers(0, 256, (2, 64, 64, 4), dtype=np.uint8)
+        jax_state, jm = jax_step(jax_state, jnp.asarray(src), jnp.asarray(tgt))
+        tm = torch_step(state, torch.from_numpy(src), torch.from_numpy(tgt))
+        assert sorted(tm) == sorted(jm)
+        for k in jm:
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4, err_msg=k)
+    assert state.step == 3 == int(jax_state.step)
+
+    for net, init, jax_init, jax_final, to_sd in (
+        (state.generator, g0, jax_g0, jax_state.g_params,
+         convert.generator_state_dict_from_flax),
+        (state.discriminator, d0, jax_d0, jax_state.d_params,
+         convert.discriminator_state_dict_from_flax),
+    ):
+        ref0 = to_sd(jax_init, net)
+        ref1 = to_sd(jax.tree_util.tree_map(np.asarray, jax_final), net)
+        for k, w in net.state_dict().items():
+            delta = (w - init[k]).numpy()
+            ref = (ref1[k] - ref0[k]).numpy()
+            # zero for down.5: InstanceNorm over the 1x1 bottleneck cuts its
+            # gradient on both sides, so the port must not move it either
+            scale = np.linalg.norm(ref)
+            assert np.linalg.norm(delta - ref) <= 1e-3 * scale, k
+
+
+def test_loader_matches_jax_on_synthetic_root(tmp_path):
+    root = str(tmp_path / "ds")
+    _write_synthetic_root(root, 10, seed=4)
+    config = config_for_variant("baseline", data_root=root, dataset_sizes=(10,))
+    ours = tloader.make_rgba_datasets(config, "cpu")
+    ref = jloader.make_rgba_datasets(config)
+    for o, r in zip(ours, ref):
+        assert o.n == r.n
+        assert o.sources.dtype == torch.uint8
+        np.testing.assert_array_equal(o.sources.numpy(), np.asarray(r.sources))
+        np.testing.assert_array_equal(o.targets.numpy(), np.asarray(r.targets))
+    assert (ours[0].n, ours[1].n) == (9, 1)
+
+
+def test_missing_dataset_root_raises(tmp_path):
+    config = config_for_variant("baseline", data_root=str(tmp_path / "none"))
+    with pytest.raises(FileNotFoundError, match="not in this repository"):
+        tloader.make_rgba_datasets(config, "cpu")
+
+
+def test_batch_indices_epoch_permutation():
+    n, b = 10, 4  # 3 steps an epoch; the last batch wraps around
+    epoch0 = [tloader.batch_indices(7, s, n, b, "cpu") for s in range(3)]
+    flat = torch.cat(epoch0).tolist()
+    assert sorted(set(flat)) == list(range(n))
+    assert flat[10:] == flat[:2]
+    again = tloader.batch_indices(7, 1, n, b, "cpu")
+    assert torch.equal(again, epoch0[1])
+    epoch1 = torch.cat([tloader.batch_indices(7, s, n, b, "cpu") for s in range(3, 6)])
+    assert not torch.equal(epoch1, torch.cat(epoch0))
+
+
+def test_cli_trains_synthetic_sprites_on_cpu(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)  # the metrics writer logs under ./temp-side2side
+    narrow = ["8"] * 6
+    rc = tcli.main([
+        "--model", "histogram", "--steps", "2", "--update-steps", "1",
+        "--batch-size", "2", "--device", "cpu", "--synthetic",
+        "--down-filters", *narrow, "--up-filters", *narrow,
+    ])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "Starting training for histogram" in out and "on cpu: 2 steps" in out
+    assert (tmp_path / "temp-side2side" / "logs").is_dir()
+
+
+def test_pack_rows_round_trip():
+    x = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (3, 64, 64, 4), dtype=np.uint8))
+    packed = tsteps.pack_rows(x)
+    assert packed.dtype == torch.int32 and packed.shape == (3, 4096)
+    # little-endian: byte 0 of each word is R
+    assert int(packed[0, 0]) & 0xFF == int(x[0, 0, 0, 0])
+    assert torch.equal(tsteps.unpack_rows(packed[[2, 0]]), x[[2, 0]])
