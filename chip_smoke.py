@@ -7,31 +7,41 @@ NVIDIA GPU.
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; exits 1 without a CUDA device.
-  2. build: compiles the fused augmentation kernel (csrc/augment.cu) with
-     nvcc for sm_90a from this checkout.
-  3. kernel vs plain: every input format x float32/bfloat16 output x
-     normalize on/off, at B=4 and B=1024, on the same draws; float32 within
-     5e-4 on the 0-255 scale, bfloat16 within one bfloat16 ulp beyond that
-     float32 tolerance. Times both at the main path's shapes with CUDA
-     events.
-  4. parity: two full-width float32 histogram-variant steps on the card
+  2. build: compiles the fused augmentation kernel (csrc/augment.cu) and
+     the fused histogram kernels (csrc/histogram.cu) with nvcc for sm_90a
+     from this checkout, both nvcc processes at once.
+  3. augment kernel vs plain: every input format x float32/bfloat16 output
+     x normalize on/off, at B=4 and B=1024, on the same draws; float32
+     within 5e-4 on the 0-255 scale, bfloat16 within one bfloat16 ulp
+     beyond that float32 tolerance. Times both at the main path's shapes
+     with CUDA events.
+  4. histogram kernels vs plain: each of K3a, K3b (forward) and K4a, K4b,
+     K4c (backward) at B=4 and B=1024, 64x64 images, 64 bins, in every
+     chain its configuration allows, on the same seeded pixels and
+     cotangents; within HIST_TOL of the largest |plain value|. Times both
+     with CUDA events in the chain each regime runs: B=1024 with the
+     bfloat16 compute dtype (K3a/K4a keep their float32 chain), B=4 float32.
+  5. parity: two full-width float32 histogram-variant steps on the card
      (kernel path) against the same steps on the CPU (plain path), from the
      same weights on the same batches, deterministic dropout and no
      augmentation draws kept (the kernel only normalizes); losses within
-     rtol 1e-3.
-  5. main path: a full-width float32 histogram-variant Trainer, batch 4, on
+     rtol 1e-3. Under the default histogram ("xla"/"tri"), "pallas" and
+     histogram_bwd="pallas".
+  6. main path: a full-width float32 histogram-variant Trainer, batch 4, on
      a seeded synthetic sprite set of 250 train / 44 test pairs;
      fit(steps=8, update_steps=4) with the L1 report, then one single step
-     (make_train_step) on a uint8 batch. The kernel launch counts are set
-     to 0 before and read after; each must be at least 1, the chunk's at
-     least 8.
-  6. timed chunks, each after a 2-step warm-up, through Trainer.fit at
-     full width: float32 batch 4 (40 steps) and bfloat16 batch 1024
-     (10 steps); finite losses, ms/step, img/s, peak device memory.
+     (make_train_step) on a uint8 batch; once under each histogram
+     configuration ("xla"/"tri", "pallas", "pallas2", histogram_bwd
+     "pallas"). The kernel launch counts are set to 0 before each run and
+     read after; the augmentation's must be at least 8 (packed) and 1
+     (uint8), the configuration's histogram forward at least 16 and its
+     backward at least 8.
+  7. timed chunks, each after a 2-step warm-up, through Trainer.fit at
+     full width: float32 batch 4 (40 steps) and bfloat16 batch 1024 (10
+     steps) under "xla"/"tri", and bfloat16 batch 1024 under "pallas",
+     "pallas2" and histogram_bwd="pallas"; finite losses, ms/step, img/s,
+     peak device memory.
 
-The last three lines of standard output are the kernels' JSON record, the
-card's name and power limit as nvidia-smi reports them, and
-{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -53,6 +63,36 @@ SOURCE = "palette_and_histo_gan_tpu_torch/csrc/augment.cu"
 REPLACES = {
     "packed": "palette_and_histo_gan_tpu/ops/augment_pallas.py:273",
     "rgba": "palette_and_histo_gan_tpu/ops/augment_pallas.py:119",
+}
+HIST_SOURCE = "palette_and_histo_gan_tpu_torch/csrc/histogram.cu"
+# TPU kernel -> (direction, its body, the chains its configuration runs)
+HIST_KERNELS = {
+    "K3a": ("fwd", "palette_and_histo_gan_tpu/ops/histogram_pallas.py:76", ("float32",)),
+    "K3b": ("fwd", "palette_and_histo_gan_tpu/ops/histogram_pallas2.py:42", ("float32", "bfloat16")),
+    "K4a": ("bwd", "palette_and_histo_gan_tpu/ops/histogram_pallas.py:125", ("float32",)),
+    "K4b": ("bwd", "palette_and_histo_gan_tpu/ops/histogram_pallas2.py:99", ("float32", "bfloat16")),
+    "K4c": ("bwd", "palette_and_histo_gan_tpu/ops/histogram_pallas3.py:63", ("float32", "bfloat16")),
+}
+# kernel vs plain, as a fraction of the largest |plain value|:
+#  * float32: the same elementwise chain op for op; the sums over 4096
+#    pixels (forward) and over 64 bins (backward) run in another order;
+#  * bfloat16: the products are exact in float32 on both sides, but a
+#    float32 sum in another order can put a bfloat16 rounding of m1, da or
+#    a per-pixel reduction on the other side of a tie, one bfloat16 ulp
+#    (2^-8 relative) of that value; the backward allows two such ulps of
+#    the largest row. K4c's approximate reciprocal (plain: exact) can do
+#    the same.
+HIST_TOL = {
+    ("fwd", "float32"): 1e-5, ("bwd", "float32"): 1e-4,
+    ("fwd", "bfloat16"): 1e-4, ("bwd", "bfloat16"): 8e-3,
+}
+# the histogram configurations, as config_for_variant overrides, and the
+# kernels each one runs on the card
+HIST_CONFIGS = {
+    "xla/tri": ({}, ()),
+    "pallas": ({"histogram_impl": "pallas"}, ("K3a", "K4a")),
+    "pallas2": ({"histogram_impl": "pallas2"}, ("K3b", "K4b")),
+    "bwd=pallas": ({"histogram_bwd": "pallas"}, ("K4c",)),
 }
 # logs of the smoke's Trainers go under a folder .gitignore lists
 TEMP_FOLDER = os.path.join("build", "chip_smoke")
@@ -181,6 +221,91 @@ def phase_kernel_vs_plain(device) -> dict:
     return {"worst": worst, "times": times}
 
 
+def histogram_inputs(b: int, device, seed: int):
+    """Per-pixel logs (B, 3, HW) and Iy (B, HW) of seeded uint8 pixels, and
+    a seeded (B, 3, 64, 64) cotangent, all float32 on `device`."""
+    from palette_and_histo_gan_tpu_torch.ops import histogram_kernel as hk
+
+    rng = np.random.default_rng(seed)
+    flat01 = torch.from_numpy(rng.integers(0, 256, (b, 4096, 3), dtype=np.uint8)).to(device).float() / 255.0
+    logs, iy = hk.logs_and_intensity(flat01)
+    g = torch.from_numpy(rng.standard_normal((b, 3, 64, 64), dtype=np.float32) * 1e-3).to(device)
+    return logs, iy, g
+
+
+def histogram_call(name: str, chain: str, logs, iy, g, method="inverse-quadratic", plain=False):
+    """One call of the kernel `name` (or its plain version) in `chain`."""
+    from palette_and_histo_gan_tpu_torch.ops import histogram_kernel as hk
+
+    direction = HIST_KERNELS[name][0]
+    kw = dict(size=64, method=method, sigma=0.02, chain=getattr(torch, chain))
+    if direction == "fwd":
+        if plain:
+            return hk.histogram_forward_plain(logs, iy, **kw)
+        return hk.histogram_forward_cuda(logs, iy, kernel=name, **kw)
+    if plain:
+        return hk.histogram_backward_plain(logs, iy, g, **kw)
+    approx = name == "K4c" and chain == "bfloat16"
+    return hk.histogram_backward_cuda(logs, iy, g, approx=approx, kernel=name, **kw)
+
+
+def phase_histogram_check(device) -> dict:
+    """Each histogram kernel against its plain version in every chain its
+    configuration allows, at B=4 and B=1024 (and the RBF kernel at B=4).
+    Returns per kernel its worst absolute error."""
+    worst = {name: 0.0 for name in HIST_KERNELS}
+    for b in (4, 1024):
+        logs, iy, g = histogram_inputs(b, device, SEED + b)
+        for name, (direction, _, chains) in HIST_KERNELS.items():
+            for chain in chains:
+                for method in ("inverse-quadratic", "RBF") if b == 4 else ("inverse-quadratic",):
+                    got = histogram_call(name, chain, logs, iy, g, method)
+                    torch.cuda.synchronize()
+                    ref = histogram_call(name, chain, logs, iy, g, method, plain=True)
+                    torch.cuda.synchronize()
+                    if got.shape != ref.shape or got.dtype != torch.float32:
+                        raise AssertionError(f"{name}: kernel output {got.dtype} {tuple(got.shape)}")
+                    err = float((got - ref).abs().max())
+                    rel = err / float(ref.abs().max())
+                    tol = HIST_TOL[(direction, chain)]
+                    worst[name] = max(worst[name], err)
+                    log("hist", f"{name} B={b} {chain} {method}: max|kernel - plain| {err:.3e}, "
+                        f"{rel:.3e} of max|plain| (tol {tol:g})")
+                    if not (math.isfinite(rel) and rel <= tol):
+                        raise AssertionError(f"{name} disagrees with its plain version: B={b} {chain} {method}")
+            del got, ref
+        del logs, iy, g
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_histogram_times(device) -> dict:
+    """Kernel and plain version in each regime's chain, at its batch:
+    plain, kernel, kernel, plain. Returns per (kernel, batch) the mean
+    kernel and plain milliseconds."""
+    times = {}
+    for b, compute, iters, plain_iters in ((1024, "bfloat16", 20, 3), (4, "float32", 200, 20)):
+        logs, iy, g = histogram_inputs(b, device, SEED)
+        for name, (_, _, chains) in HIST_KERNELS.items():
+            chain = compute if compute in chains else "float32"
+
+            def kern():
+                histogram_call(name, chain, logs, iy, g)
+
+            def plain():
+                histogram_call(name, chain, logs, iy, g, plain=True)
+
+            p1 = cuda_ms(plain, plain_iters)
+            k1, k2 = cuda_ms(kern, iters), cuda_ms(kern, iters)
+            p2 = cuda_ms(plain, plain_iters)
+            times[(name, b)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            log("hist", f"time {name} B={b} {chain}: kernel {k1:.4f} / {k2:.4f} ms, "
+                f"plain {p1:.4f} / {p2:.4f} ms")
+        del logs, iy, g
+        torch.cuda.empty_cache()
+    return times
+
+
 # ------------------------------------------------------------ train steps
 
 
@@ -233,20 +358,22 @@ def phase_parity(device, config_overrides: dict) -> float:
     return worst
 
 
-def phase_main_path(device, config_overrides: dict, steps=8, update_steps=4) -> dict:
+def phase_main_path(device, config_overrides: dict, hist_kernels=(), steps=8, update_steps=4) -> dict:
     """The Trainer's fit and one single step on a uint8 batch; returns the
-    launch counts of that run."""
+    launch counts of that run, augmentation's and histogram's."""
     from palette_and_histo_gan_tpu_torch import config_for_variant
     from palette_and_histo_gan_tpu_torch.data import batch_indices
-    from palette_and_histo_gan_tpu_torch.ops import augment_kernel
+    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, histogram_kernel
     from palette_and_histo_gan_tpu_torch.train import make_train_step
     from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
 
     config = config_for_variant("histogram", temp_folder=TEMP_FOLDER, **config_overrides)
     trainer = Trainer(config, device, synthetic_datasets(config, device))
-    log("main", f"train {trainer.train_ds.n} / test {trainer.test_ds.n} pairs, batch {config.batch_size}, {config.compute_dtype}")
+    log("main", f"train {trainer.train_ds.n} / test {trainer.test_ds.n} pairs, batch {config.batch_size}, "
+        f"{config.compute_dtype}, histogram_impl {config.histogram_impl}, histogram_bwd {config.histogram_bwd}")
 
     augment_kernel.reset_launches()
+    histogram_kernel.reset_launches()
     trainer.fit(steps=steps, update_steps=update_steps, callbacks=["evaluate_l1"])
     # the single-step entry point on a gathered uint8 batch
     idx = batch_indices(SEED, trainer.state.step, trainer.train_ds.n, config.batch_size, device)
@@ -255,7 +382,7 @@ def phase_main_path(device, config_overrides: dict, steps=8, update_steps=4) -> 
     )
     if device.type == "cuda":
         torch.cuda.synchronize()
-    launches = dict(augment_kernel.launches)
+    launches = {**augment_kernel.launches, **histogram_kernel.launches}
 
     for i, row in enumerate(trainer.history):
         check_finite(row, f"step {i}")
@@ -274,9 +401,15 @@ def phase_main_path(device, config_overrides: dict, steps=8, update_steps=4) -> 
     log("main", f"L1 train {l1_train:.5f}  test {l1_test:.5f}")
     if len(trainer.history) != steps or trainer.state.step != steps + 1:
         raise AssertionError(f"{len(trainer.history)} steps logged, state at {trainer.state.step}")
-    log("main", f"augment launches in this run: {launches}")
-    if device.type == "cuda" and (launches["packed"] < steps or launches["rgba"] < 1):
-        raise AssertionError(f"the main path did not run the kernel: {launches}")
+    log("main", f"kernel launches in this run: {launches}")
+    # each step runs the histogram twice (real and fake) and backpropagates
+    # the fake's only
+    need = {"packed": steps, "rgba": 1}
+    for name in hist_kernels:
+        need[name] = 2 * steps if HIST_KERNELS[name][0] == "fwd" else steps
+    short = {k: launches[k] for k, n in need.items() if launches[k] < n}
+    if device.type == "cuda" and short:
+        raise AssertionError(f"the main path did not run the kernels {short}; needed {need}")
     return launches
 
 
@@ -317,34 +450,57 @@ def phase_timed_chunk(device, compute_dtype: str, config_overrides: dict, steps:
 # ------------------------------------------------------------------- main
 
 
+def build_kernels() -> None:
+    """Both libraries, with their nvcc processes at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from palette_and_histo_gan_tpu_torch.kernels import build
+    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, histogram_kernel
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(augment_kernel.library), pool.submit(histogram_kernel.library)]:
+            job.result()
+    for name, source in (("phg_augment", "augment.cu"), ("phg_histogram", "histogram.cu")):
+        log("build", f"{source} -> sm_90a: nvcc {build.build_seconds.get(name, 0.0):.2f} s "
+            "(0 when already built)")
+    log("build", f"both built and loaded in {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device; this smoke runs only on a GPU",
               file=sys.stderr)
         return 1
     from palette_and_histo_gan_tpu_torch import set_f32_parity_mode
-    from palette_and_histo_gan_tpu_torch.kernels import build
-    from palette_and_histo_gan_tpu_torch.ops import augment_kernel
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
     log("device", f"{card}; {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
-    augment_kernel.library()
-    log("build", f"augment.cu -> sm_90a: nvcc {build.build_seconds.get('phg_augment', 0.0):.2f} s "
-        f"(0 when already built), load {time.perf_counter() - t0:.2f} s")
-
+    build_kernels()
     kern = phase_kernel_vs_plain(device)
-
     set_f32_parity_mode()
-    worst = phase_parity(device, dict(batch_size=4))
-    log("parity", f"worst relative loss difference {worst:.2e} (tol {PARITY_RTOL})")
+    hist = {"worst": phase_histogram_check(device), "times": phase_histogram_times(device)}
 
-    launches = phase_main_path(device, dict(batch_size=4))
+    for label in ("xla/tri", "pallas", "bwd=pallas"):
+        worst = phase_parity(device, dict(batch_size=4, **HIST_CONFIGS[label][0]))
+        log("parity", f"{label}: worst relative loss difference {worst:.2e} (tol {PARITY_RTOL})")
+
+    launches = {}
+    for label, (overrides, names) in HIST_CONFIGS.items():
+        counts = phase_main_path(device, dict(batch_size=4, **overrides), names)
+        if label == "xla/tri":
+            launches.update(packed=counts["packed"], rgba=counts["rgba"])
+        launches.update({name: counts[name] for name in names})
+
     f32 = phase_timed_chunk(device, "float32", dict(batch_size=4), steps=40)
-    bf16 = phase_timed_chunk(device, "bfloat16", dict(batch_size=1024), steps=10)
+    bf16 = {
+        label: phase_timed_chunk(device, "bfloat16", dict(batch_size=1024, **overrides), steps=10)
+        for label, (overrides, _) in HIST_CONFIGS.items()
+    }
     if "jax" in sys.modules:
         raise AssertionError("the port loaded jax")
 
@@ -361,10 +517,25 @@ def main() -> int:
             "ms": ms,
             "plain_ms": plain_ms,
         })
+    for name, (_, replaces, _) in HIST_KERNELS.items():
+        ms, plain_ms = hist["times"][(name, 1024)]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": HIST_SOURCE,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": hist["worst"][name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+        })
     log("summary", f"{card}: b4 kernel/plain ms "
         + ", ".join(f"{e} {kern['times'][(e, 4)][0]:.4f}/{kern['times'][(e, 4)][1]:.4f}" for e in ("packed", "rgba"))
-        + f"; f32 b4 {f32['ms_per_step']:.3f} ms/step {f32['img_per_s']:.1f} img/s"
-        + f"; bf16 b1024 {bf16['ms_per_step']:.3f} ms/step {bf16['img_per_s']:.1f} img/s")
+        + ", " + ", ".join(f"{n} {hist['times'][(n, 4)][0]:.4f}/{hist['times'][(n, 4)][1]:.4f}" for n in HIST_KERNELS)
+        + f"; f32 b4 {f32['ms_per_step']:.3f} ms/step {f32['img_per_s']:.1f} img/s; bf16 b1024 "
+        + ", ".join(f"{label} {r['ms_per_step']:.3f} ms/step {r['img_per_s']:.1f} img/s {r['peak_gib']:.2f} GiB"
+                    for label, r in bf16.items())
+        + f"; smoke {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

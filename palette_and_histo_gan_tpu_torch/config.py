@@ -4,10 +4,18 @@
 only the standard library, so both packages are driven by one frozen
 dataclass and the parity tests hand the same `Config` to each.
 
-Knobs the port does not implement yet raise `NotImplementedError` in
-`check_supported` (see ROADMAP.md, "Queue 2" and "Queue 1"):
-  * `histogram_impl` other than "xla" (the Pallas histogram kernels),
-  * `histogram_bwd` other than "tri",
+The histogram knobs mean what they mean in the JAX step:
+`histogram_impl` "xla" (plain PyTorch forward), "pallas" (kernels K3a/K4a,
+float32 chain) or "pallas2" (kernels K3b/K4b, chain in the compute dtype);
+under "xla" only, `histogram_bwd` "tri" (plain PyTorch) or "pallas"
+(kernel K4c). The JAX step ignores `histogram_bwd` under "pallas" and
+"pallas2", and so does the port.
+
+Knobs the port does not implement raise `NotImplementedError` in
+`check_supported` (see ROADMAP.md, "Queue 1"):
+  * `histogram_bwd` "dual", "tri2", "tri2b", "tri2c" under
+    `histogram_impl="xla"`: XLA dot-structure alternatives of the "tri"
+    backward, measured on the TPU and not ported;
   * the indexed model.
 
 Knobs that only choose a TPU lowering of the same function, and that the
@@ -31,6 +39,8 @@ from palette_and_histo_gan_tpu.config import (  # noqa: F401  (re-exported)
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the histogram backwards the port runs under histogram_impl="xla"
+HISTOGRAM_BWDS = ("tri", "pallas")
 
 
 def check_supported(config: Config, device: torch.device | str) -> None:
@@ -41,15 +51,10 @@ def check_supported(config: Config, device: torch.device | str) -> None:
             "the indexed model is not ported yet (ROADMAP.md, Queue 1: "
             "indexed slice, with kernel K5)"
         )
-    if config.histogram_impl != "xla":
+    if config.histogram_impl == "xla" and config.histogram_bwd not in HISTOGRAM_BWDS:
         raise NotImplementedError(
-            f"histogram_impl={config.histogram_impl!r}: the Pallas histogram "
-            "kernels are not ported yet (ROADMAP.md, Queue 2: K3a-K4c); use 'xla'"
-        )
-    if config.histogram_bwd != "tri":
-        raise NotImplementedError(
-            f"histogram_bwd={config.histogram_bwd!r}: only the 'tri' backward is "
-            "ported (ROADMAP.md, Queue 2)"
+            f"histogram_bwd={config.histogram_bwd!r}: an XLA dot-structure "
+            f"alternative the port does not run; it has {HISTOGRAM_BWDS}"
         )
     if device.type == "cuda" and config.augment_impl == "xla":
         raise ValueError(

@@ -1,11 +1,11 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each library is compiled from `csrc/` at its first use in a process, into
-`build/torch_kernels/` at the repository root, for Hopper (`sm_90a`). The
-library's file name carries a hash of its sources and flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. The sources have
-a plain C interface and include no PyTorch header, which keeps a build at a
-few seconds.
+`build/torch_kernels/` at the repository root, for Hopper (`sm_90a`), with
+the common flags plus its own. The library's file name carries a hash of
+its sources and all its flags, so an edited source or flag is rebuilt and
+an unchanged one is loaded as it is. The sources have a plain C interface
+and include no PyTorch header, which keeps a build at a few seconds.
 """
 
 from __future__ import annotations
@@ -22,13 +22,14 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "torch_kernels")
 
-# -fmad=false: no multiply-add contraction, so a kernel's float arithmetic
-# rounds op for op like its plain PyTorch version
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
+    "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# for a library whose float arithmetic must round op for op like its plain
+# PyTorch version: no multiply-add contraction anywhere
+NO_FMA = ("-fmad=false",)
 
 # seconds spent in nvcc by this process, per library name
 build_seconds: dict[str, float] = {}
@@ -50,11 +51,13 @@ def find_nvcc() -> str:
     )
 
 
-def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
-    """Compile `sources` (file names under csrc/) into lib<name>-<hash>.so,
-    unless that file exists, and load it."""
+def load_library(name: str, sources: tuple[str, ...],
+                 flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Compile `sources` (file names under csrc/) with NVCC_FLAGS plus
+    `flags` into lib<name>-<hash>.so, unless that file exists, and load it."""
     paths = [os.path.join(CSRC_DIR, s) for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    nvcc_flags = (*NVCC_FLAGS, *flags)
+    digest = hashlib.sha256(" ".join(nvcc_flags).encode())
     for path in paths:
         with open(path, "rb") as f:
             digest.update(f.read())
@@ -65,7 +68,7 @@ def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
         # load a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
+        cmd = [find_nvcc(), *nvcc_flags, "-o", tmp, *paths]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         build_seconds[name] = time.perf_counter() - t0

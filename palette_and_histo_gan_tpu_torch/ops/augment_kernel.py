@@ -45,7 +45,7 @@ def library() -> ctypes.CDLL:
     """The kernel's shared library, built from csrc/augment.cu at first use."""
     global _lib
     if _lib is None:
-        lib = build.load_library("phg_augment", ("augment.cu",))
+        lib = build.load_library("phg_augment", ("augment.cu",), build.NO_FMA)
         lib.phg_augment.argtypes = (
             # fmt, out_bf16, normalize; src, tgt, delta, sy, sx, keep, out_s,
             # out_t; batch; stream

@@ -5,7 +5,8 @@ XLA code and not a TPU kernel, so this is plain PyTorch:
   * the forward is `_unnormalized_histograms` (:77-96);
   * the backward is the hand-structured "tri" VJP (`_histogram_core_bwd`,
     :143-185): per channel three products, each consumed by one
-    elementwise-and-reduce chain;
+    elementwise-and-reduce chain; `bwd="pallas"` swaps in kernel K4c
+    (ops/histogram_pallas3.py), as JAX's `_histogram_core_pallas_bwd`;
   * `hellinger_loss` and `l1_loss` (:517-530).
 
 Formulas (image in [-1, 1], rescaled to [0, 1], alpha dropped):
@@ -143,12 +144,21 @@ def calculate_rgbuv_histogram(
     method: str = "inverse-quadratic",
     sigma: float = 0.02,
     dtype: torch.dtype = torch.float32,
+    bwd: str = "tri",
 ) -> torch.Tensor:
     """Differentiable color histogram of a [-1, 1] NHWC batch, (B, size,
-    size, 3), normalized to sum 1 per image."""
+    size, 3), normalized to sum 1 per image. `bwd` is the backward: "tri"
+    (plain PyTorch) or "pallas" (kernel K4c); the JAX package's other
+    dot structures ("dual", "tri2", "tri2b", "tri2c") are not ported."""
+    if bwd == "tri":
+        core = _HistogramCore
+    elif bwd == "pallas":
+        from .histogram_pallas3 import HistogramCorePallasBwd as core
+    else:
+        raise ValueError(f"histogram bwd {bwd!r}: the port has 'tri' and 'pallas'")
     image_batch = image_batch * 0.5 + 0.5
     flat = image_batch[..., :3].reshape(image_batch.shape[0], -1, 3)
-    histograms = _HistogramCore.apply(flat, size, method, sigma, dtype)
+    histograms = core.apply(flat, size, method, sigma, dtype)
     return histograms / torch.sum(histograms, dim=(1, 2, 3), keepdim=True)
 
 

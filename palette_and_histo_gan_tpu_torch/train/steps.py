@@ -1,7 +1,8 @@
 """The RGBA train step and the chunked training loop.
 
 Mirrors palette_and_histo_gan_tpu/train/steps.py: `rgba_train_step`
-(:170-310), the u32 row pack (:402-426), `make_train_step` (:454) and
+(:170-310) with its histogram dispatch (:234-276), the u32 row pack
+(:402-426), `make_train_step` (:454) and
 `make_train_chunk` (:467-515). Where JAX takes `value_and_grad` of two
 pure loss functions, this step runs the generator once, backpropagates the
 generator loss into the generator's parameters only, runs the
@@ -13,6 +14,7 @@ Metric names are the JAX package's `generator/*` and `discriminator/*`.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable
 
 import torch
@@ -21,6 +23,8 @@ from ..config import Config, compute_dtype
 from ..data.loader import batch_indices
 from ..ops import augment as augment_ops
 from ..ops import histogram as hist_ops
+from ..ops.histogram_pallas import calculate_rgbuv_histogram_pallas
+from ..ops.histogram_pallas2 import calculate_rgbuv_histogram_pallas2
 from ..ops.image import normalize
 from .losses import discriminator_loss, generator_loss
 from .state import TrainState
@@ -60,6 +64,23 @@ def _prepare_batch(config: Config, state: TrainState, source, target):
     return normalize(source.float()), normalize(target.float())
 
 
+def histogram_fn(config: Config) -> Callable:
+    """The histogram of `config.histogram_impl`, called as
+    fn(batch, size=, method=, sigma=, dtype=), as the JAX step selects it
+    (palette_and_histo_gan_tpu/train/steps.py:234-276): "pallas" drops
+    `dtype` (its chain is float32), and `histogram_bwd` counts only under
+    "xla"."""
+    if config.histogram_impl == "pallas":
+
+        def hist_fn(batch, dtype, **kw):
+            return calculate_rgbuv_histogram_pallas(batch, **kw)
+
+        return hist_fn
+    if config.histogram_impl == "pallas2":
+        return calculate_rgbuv_histogram_pallas2
+    return partial(hist_ops.calculate_rgbuv_histogram, bwd=config.histogram_bwd)
+
+
 def rgba_train_step(config: Config, state: TrainState, source, target) -> dict:
     """One optimization step on a raw [0, 255] RGBA batch (uint8, float32
     or packed int32), in place on `state`. Returns detached 0-dim metrics."""
@@ -77,8 +98,9 @@ def rgba_train_step(config: Config, state: TrainState, source, target) -> dict:
             size=config.histogram_size, method=config.histogram_method,
             sigma=config.histogram_sigma, dtype=dtype,
         )
-        real_hist = hist_ops.calculate_rgbuv_histogram(target, **kw)
-        fake_hist = hist_ops.calculate_rgbuv_histogram(fake, **kw)
+        hist_fn = histogram_fn(config)
+        real_hist = hist_fn(target, **kw)
+        fake_hist = hist_fn(fake, **kw)
         h_loss = hist_ops.hellinger_loss(real_hist, fake_hist)
         g_metrics["histogram_loss"] = h_loss
         g_metrics["total_loss"] = g_metrics["total_loss"] + config.lambda_histogram * h_loss

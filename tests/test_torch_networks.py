@@ -11,7 +11,14 @@
   networks_rgba.npz through tests/parity_utils.py, with the tolerances of
   tests/test_parity.py:72-83 (fake 1e-4, D real 1e-4, D fake 5e-4), and the
   generator, histogram and discriminator losses on it (rtol 1e-4, Hellinger
-  1e-3).
+  1e-3);
+* the full-width generator gradients of the histogram variant's G loss
+  (BCE + 30 L1 + Hellinger) against the TF tape gradients
+  networks_grads_histogram.npz, with the checks and tolerances
+  tests/test_parity.py:296-328 holds the JAX package to (every gradient's
+  norm within 0.2%, small tensors whole, large ones along fixed random
+  projections), through the default "tri" histogram and the float32 plain
+  versions of the three kernel-backed configurations.
 """
 
 import os
@@ -29,7 +36,9 @@ from palette_and_histo_gan_tpu_torch.models import convert
 from palette_and_histo_gan_tpu_torch.models import networks as tnet
 from palette_and_histo_gan_tpu_torch.ops import histogram as th
 from palette_and_histo_gan_tpu_torch.train import losses as tl
+from palette_and_histo_gan_tpu_torch.train import steps as tsteps
 from tests import parity_utils as pu
+from tests.test_parity import _assert_grads_match
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 NARROW = dict(down_filters=(8,) * 6, up_filters=(8,) * 6)
@@ -127,7 +136,7 @@ def test_bridge_refuses_missing_and_unused(narrow_flax):
         convert.generator_state_dict_from_flax(extra, g)
 
 
-def test_narrow_forward_matches_flax(narrow_flax):
+def test_narrow_forward_matches_flax(narrow_flax, monkeypatch):
     config, gen, disc, g_tree, d_tree = narrow_flax
     g, d = _torch_nets(config, g_tree, d_tree)
     rng = np.random.default_rng(3)
@@ -135,6 +144,11 @@ def test_narrow_forward_matches_flax(narrow_flax):
     tgt = rng.uniform(-1, 1, (2, 64, 64, 4)).astype(np.float32)
     fake_j = gen.apply({"params": g_tree}, jnp.asarray(src), deterministic=True)
     pred_j = disc.apply({"params": d_tree}, jnp.asarray(tgt), jnp.asarray(src))
+    # oneDNN's CPU convolution may sum in another order from one process to
+    # the next, and InstanceNorm over the narrow net's 1x1 bottleneck divides
+    # that rounding noise by sqrt(1e-3): the output then moves by ~2e-5
+    # between runs. PyTorch's own CPU convolution sums in one fixed order.
+    monkeypatch.setattr(torch.backends.mkldnn, "enabled", False)
     with torch.no_grad():
         fake_t = g(torch.from_numpy(src), deterministic=True)
         pred_t = d(torch.from_numpy(tgt), torch.from_numpy(src))
@@ -199,3 +213,57 @@ def test_full_width_losses_match_golden(golden_rgba):
     np.testing.assert_allclose(float(d["real_loss"]), g["d_real_loss"], rtol=1e-4)
     np.testing.assert_allclose(float(d["fake_loss"]), g["d_fake_loss"], rtol=1e-4)
     np.testing.assert_allclose(float(d["total_loss"]), g["d_total"], rtol=1e-4)
+
+
+def _generator_grads_to_tf(generator, grads):
+    """The port's generator gradients under the canonical TF names: back
+    through the bridge's layouts to a Flax tree, then parity_utils."""
+    tree = {}
+    for key, (path, layout) in convert._generator_key_map(6, 6).items():
+        g = grads[key].numpy()
+        if layout is convert._conv:
+            g = np.transpose(g, (2, 3, 1, 0))
+        elif layout is convert._conv_transpose:
+            g = np.transpose(g, (2, 3, 0, 1))[::-1, ::-1]
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = g
+    return pu.flax_generator_grads_to_tf(tree)
+
+
+@pytest.fixture(scope="module")
+def golden_histogram_graph():
+    """The full-width generator's fake and D's prediction on it, with the
+    graph kept for one backward per histogram configuration."""
+    g = np.load(os.path.join(GOLDEN, "networks_rgba.npz"))
+    config = config_for_variant("histogram")
+    gen, disc = _torch_nets(
+        config, pu.flax_generator_params(4, 4), pu.flax_discriminator_params(4)
+    )
+    disc.requires_grad_(False)
+    src, real = torch.from_numpy(g["source"]), torch.from_numpy(g["real"])
+    fake = gen(src, deterministic=True)
+    return gen, real, fake, disc(fake, src)
+
+
+@pytest.mark.parametrize(
+    "histogram_impl,histogram_bwd",
+    [("xla", "tri"), ("pallas", "tri"), ("pallas2", "tri"), ("xla", "pallas")],
+)
+def test_histogram_generator_gradients_match_tf(golden_histogram_graph, histogram_impl, histogram_bwd):
+    gen, real, fake, d_fake = golden_histogram_graph
+    config = config_for_variant(
+        "histogram", histogram_impl=histogram_impl, histogram_bwd=histogram_bwd
+    )
+    hist_fn = tsteps.histogram_fn(config)
+    kw = dict(size=config.histogram_size, method=config.histogram_method,
+              sigma=config.histogram_sigma, dtype=torch.float32)
+    loss = tl.generator_loss(d_fake, fake, real, 30.0)["total_loss"] + th.hellinger_loss(
+        hist_fn(real, **kw), hist_fn(fake, **kw)
+    )
+    names, params = zip(*gen.named_parameters())
+    grads = torch.autograd.grad(loss, params, retain_graph=True)
+    fixture = np.load(os.path.join(GOLDEN, "networks_grads_histogram.npz"))
+    _assert_grads_match(_generator_grads_to_tf(gen, dict(zip(names, grads))), fixture, "g.")

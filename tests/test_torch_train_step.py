@@ -5,8 +5,11 @@
   eps placement that makes the custom optimizer necessary;
 * three narrow histogram-variant steps with deterministic dropout and
   augment_probability 0, from the same bridged initialization on the same
-  uint8 batches: per-step losses (rtol 1e-4; float32 on both sides, the
-  conv and histogram sums run in another order) and the parameter deltas
+  uint8 batches, under the default histogram ("xla"/"tri") and under each
+  kernel-backed configuration ("pallas", "pallas2", histogram_bwd
+  "pallas"; the JAX kernels in interpret mode, the port's plain
+  versions): per-step losses (rtol 1e-4; float32 on both sides, the conv
+  and histogram sums run in another order) and the parameter deltas
   after three steps (the difference within 1e-3 of each tensor's delta in
   Frobenius norm; measured 4.7e-4 at worst. Elementwise the worst entry is
   ~1% off: Adam's m / (sqrt(v) + eps) turns the summation-order error of a
@@ -21,6 +24,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from palette_and_histo_gan_tpu.config import config_for_variant
 from palette_and_histo_gan_tpu.data import loader as jloader
@@ -77,10 +81,18 @@ def _same_init_states(config):
     return models, jax_state, state
 
 
-def test_three_histogram_steps_match_jax():
+@pytest.mark.parametrize(
+    "histogram_impl,histogram_bwd",
+    [("xla", "tri"), ("pallas", "tri"), ("pallas2", "tri"), ("xla", "pallas")],
+)
+def test_three_histogram_steps_match_jax(histogram_impl, histogram_bwd):
+    """The default histogram and the three kernel-backed configurations;
+    the JAX step runs its Pallas kernels in interpret mode, the port's CPU
+    tensors the kernels' plain versions."""
     config = config_for_variant(
         "histogram", deterministic_dropout=True, augment_probability=0.0,
-        donate_state=False, **NARROW,
+        donate_state=False, histogram_impl=histogram_impl,
+        histogram_bwd=histogram_bwd, **NARROW,
     )
     models, jax_state, state = _same_init_states(config)
     g0 = {k: v.clone() for k, v in state.generator.state_dict().items()}
@@ -94,7 +106,8 @@ def test_three_histogram_steps_match_jax():
     for _ in range(3):
         src = rng.integers(0, 256, (2, 64, 64, 4), dtype=np.uint8)
         tgt = rng.integers(0, 256, (2, 64, 64, 4), dtype=np.uint8)
-        jax_state, jm = jax_step(jax_state, jnp.asarray(src), jnp.asarray(tgt))
+        with pltpu.force_tpu_interpret_mode():
+            jax_state, jm = jax_step(jax_state, jnp.asarray(src), jnp.asarray(tgt))
         tm = torch_step(state, torch.from_numpy(src), torch.from_numpy(tgt))
         assert sorted(tm) == sorted(jm)
         for k in jm:
