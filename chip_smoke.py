@@ -7,9 +7,10 @@ NVIDIA GPU.
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; exits 1 without a CUDA device.
-  2. build: compiles the fused augmentation kernel (csrc/augment.cu) and
-     the fused histogram kernels (csrc/histogram.cu) with nvcc for sm_90a
-     from this checkout, both nvcc processes at once.
+  2. build: compiles the fused augmentation kernel (csrc/augment.cu), the
+     fused histogram kernels (csrc/histogram.cu) and the palette index
+     kernel (csrc/palette.cu) with nvcc for sm_90a from this checkout, the
+     three nvcc processes at once.
   3. augment kernel vs plain: every input format x float32/bfloat16 output
      x normalize on/off, at B=4 and B=1024, on the same draws; float32
      within 5e-4 on the 0-255 scale, bfloat16 within one bfloat16 ulp
@@ -36,12 +37,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      read after; the augmentation's must be at least 8 (packed) and 1
      (uint8), the configuration's histogram forward at least 16 and its
      backward at least 8.
-  7. timed chunks, each after a 2-step warm-up, through Trainer.fit at
-     full width: float32 batch 4 (40 steps) and bfloat16 batch 1024 (10
-     steps) under "xla"/"tri", and bfloat16 batch 1024 under "pallas",
-     "pallas2" and histogram_bwd="pallas"; finite losses, ms/step, img/s,
-     peak device memory.
+  7. palette index kernel K5 vs plain: on the few-colour synthetic sprite
+     set of 250 + 44 pairs (data/loader.py::synthetic_indexed_arrays), its
+     588 images against their pairs' joint palettes, and its first 4;
+     exact int32 equality; at least one label past 255 and at least one
+     truncated palette. Times both with CUDA events, plain, kernel,
+     kernel, plain.
+  8. indexed parity: two full-width float32 indexed steps on the card
+     against the same steps on the CPU, from the same weights on the same
+     index maps, deterministic dropout; the generator's argmax maps agree
+     on at least 99.9% of pixels (tests/test_parity.py:162's allowance for
+     near-ties), the losses within rtol 1e-3.
+  9. indexed main path: the launch counts set to 0, the indexed datasets
+     built on the card from the few-colour set (K5 on the sources and the
+     targets of both splits: at least 4 launches), a full-width float32
+     indexed Trainer, batch 4, fit(steps=8, update_steps=4) with the L1
+     report, the counts read; the card-built datasets equal the CPU-built
+     ones; finite losses.
+ 10. timed chunks, each after a 2-step warm-up, through Trainer.fit at
+     full width: histogram float32 batch 4 (40 steps) and bfloat16 batch
+     1024 (10 steps) under "xla"/"tri", bfloat16 batch 1024 under
+     "pallas", "pallas2" and histogram_bwd="pallas"; indexed float32 batch
+     4 (40 steps) and bfloat16 batch 1024 (10 steps); finite losses,
+     ms/step, img/s, peak device memory.
 
+The kernels line gives each kernel's time at the main path's largest
+shape beside its bound: the larger of the bytes it must move (inputs read
+once, outputs written once) over 3.35 TB/s and its operations over the
+card's peak for their type (PEAK).
 """
 
 from __future__ import annotations
@@ -94,8 +117,33 @@ HIST_CONFIGS = {
     "pallas2": ({"histogram_impl": "pallas2"}, ("K3b", "K4b")),
     "bwd=pallas": ({"histogram_bwd": "pallas"}, ("K4c",)),
 }
+PAL_SOURCE = "palette_and_histo_gan_tpu_torch/csrc/palette.cu"
+PAL_REPLACES = "palette_and_histo_gan_tpu/ops/palette_pallas.py:26"
+ARGMAX_AGREEMENT = 0.999
 # logs of the smoke's Trainers go under a folder .gitignore lists
 TEMP_FOLDER = os.path.join("build", "chip_smoke")
+
+# An H100 SXM's peaks (NVIDIA's data sheet, dense): memory bytes/s and
+# operations/s by type. int32 on the CUDA cores: 132 SMs x 64 INT32 lanes x
+# 1.98 GHz (the Hopper white paper; half the float32 lanes behind the
+# float32 67 TFLOP/s). bfloat16 is the tensor cores' rate: the bfloat16
+# chain's products are bfloat16 x bfloat16 summed in float32.
+PEAK = {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12, "int32": 132 * 64 * 1.98e9}
+# the augmentation's float32 operations a pixel and image (hue rotation,
+# select, normalize; csrc/augment.cu)
+AUGMENT_OPS_PER_PIXEL = 40
+
+
+def bound(nbytes: float, ops: float, op_type: str) -> tuple[float, str]:
+    """The least time the card could take for this work, in ms, and what
+    sets it: bytes over the memory rate or operations over their peak."""
+    t_bytes = 1e3 * nbytes / PEAK["bytes"]
+    t_ops = 1e3 * ops / PEAK[op_type]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def card_line() -> str:
@@ -212,7 +260,9 @@ def phase_kernel_vs_plain(device) -> dict:
                 augment.augment_plain(src, tgt, *draws, **kw)
 
             p1, k1, k2, p2 = (cuda_ms(f, iters) for f in (plain, kern, kern, plain))
-            times[(entry, b)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            moved = nbytes(src, tgt, *draws) + 2 * b * 64 * 64 * 4 * out_dtype.itemsize
+            times[(entry, b)] = ((k1 + k2) / 2, (p1 + p2) / 2,
+                                 *bound(moved, AUGMENT_OPS_PER_PIXEL * 2 * b * 4096, "float32"))
             log(
                 "kernel",
                 f"time B={b} {fmt} -> {str(out_dtype)[6:]}: kernel {k1:.4f} / {k2:.4f} ms, "
@@ -298,7 +348,15 @@ def phase_histogram_times(device) -> dict:
             p1 = cuda_ms(plain, plain_iters)
             k1, k2 = cuda_ms(kern, iters), cuda_ms(kern, iters)
             p2 = cuda_ms(plain, plain_iters)
-            times[(name, b)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            # products only: forward 2 x 64 x 64 x HW FLOP a channel and
+            # image, the backward (m1 and da) twice that; inputs logs, Iy
+            # (and the cotangent), output the planes (or the rows)
+            products = 2 * b * 3 * 64 * 64 * logs.shape[-1]
+            if HIST_KERNELS[name][0] == "fwd":
+                moved = nbytes(logs, iy) + b * 3 * 64 * 64 * 4
+            else:
+                moved, products = nbytes(logs, iy, g) + b * 4 * logs.shape[-1] * 4, 2 * products
+            times[(name, b)] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound(moved, products, chain))
             log("hist", f"time {name} B={b} {chain}: kernel {k1:.4f} / {k2:.4f} ms, "
                 f"plain {p1:.4f} / {p2:.4f} ms")
         del logs, iy, g
@@ -310,9 +368,16 @@ def phase_histogram_times(device) -> dict:
 
 
 def synthetic_datasets(config, device):
-    from palette_and_histo_gan_tpu_torch.data import datasets_from_arrays, synthetic_arrays
+    """Seeded synthetic splits of config's sizes on `device`: random uint8
+    sprites, or for the indexed variant the few-colour set, indexed."""
+    from palette_and_histo_gan_tpu_torch.data import loader
 
-    return datasets_from_arrays(*synthetic_arrays(config, SEED), device)
+    if config.is_indexed:
+        return loader.indexed_datasets_from_arrays(
+            *loader.synthetic_indexed_arrays(config, SEED), device,
+            config.palette_ordering, config.seed,
+        )
+    return loader.datasets_from_arrays(*loader.synthetic_arrays(config, SEED), device)
 
 
 def check_finite(metrics: dict, what: str) -> None:
@@ -413,14 +478,159 @@ def phase_main_path(device, config_overrides: dict, hist_kernels=(), steps=8, up
     return launches
 
 
-def phase_timed_chunk(device, compute_dtype: str, config_overrides: dict, steps: int) -> dict:
+def phase_palette_check(device) -> dict:
+    """Kernel K5 against its plain version on the few-colour set's 588
+    images (sources and targets of 250 + 44 pairs, each against its pair's
+    joint palette) and on its first 4: exact. Times both at each size."""
+    from palette_and_histo_gan_tpu_torch import config_for_variant
+    from palette_and_histo_gan_tpu_torch.data import loader
+    from palette_and_histo_gan_tpu_torch.ops import palette as palette_ops
+    from palette_and_histo_gan_tpu_torch.ops import palette_kernel
+
+    config = config_for_variant("indexed")
+    ts, tt, es, et = (loader.prepare_rgba(a) for a in loader.synthetic_indexed_arrays(config, SEED))
+    src, tgt = np.concatenate([ts, es]), np.concatenate([tt, et])
+    truncated = sum(
+        np.unique(np.concatenate([s, t]).reshape(-1, 4).view(np.uint32)).size > 256
+        for s, t in zip(src, tgt)
+    )
+    src, tgt = torch.from_numpy(src).to(device), torch.from_numpy(tgt).to(device)
+    palettes = palette_ops.joint_palettes(src, tgt, config.palette_ordering)
+    images = torch.cat([src, tgt]).contiguous()
+    palettes = torch.cat([palettes, palettes]).contiguous()
+    out = {"times": {}, "n_images": images.shape[0]}
+    for b, iters in ((images.shape[0], 50), (4, 200)):
+        im, pa = images[:b].contiguous(), palettes[:b].contiguous()
+        got = palette_kernel.rgba_to_indexed_cuda(im, pa)
+        ref = palette_kernel.rgba_to_indexed_plain(im, pa)
+        torch.cuda.synchronize()
+        if got.shape != (b, 64, 64, 1) or got.dtype != torch.int32 or not torch.equal(got, ref):
+            raise AssertionError(f"K5 disagrees with its plain version at {b} images")
+        past_255 = int((got > 255).sum())
+        log("palette", f"K5 {b} images: kernel == plain (exact), max label {int(got.max())}, "
+            f"{past_255} labels past 255")
+        if b == images.shape[0] and (past_255 == 0 or truncated == 0):
+            raise AssertionError(f"the set lacks a quirk: {past_255} labels past 255, "
+                                 f"{truncated} truncated pairs")
+
+        def kern():
+            palette_kernel.rgba_to_indexed_cuda(im, pa)
+
+        def plain():
+            palette_kernel.rgba_to_indexed_plain(im, pa)
+
+        plain_iters = max(iters // 10, 5)
+        p1 = cuda_ms(plain, plain_iters)
+        k1, k2 = cuda_ms(kern, iters), cuda_ms(kern, iters)
+        p2 = cuda_ms(plain, plain_iters)
+        # a compare and a select-add a pixel and slot; pixels and palettes
+        # read once, the maps written once
+        moved = nbytes(im, pa, got)
+        out["times"][b] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound(moved, 2 * got.numel() * 256, "int32"))
+        log("palette", f"time K5 {b} images: kernel {k1:.4f} / {k2:.4f} ms, "
+            f"plain {p1:.4f} / {p2:.4f} ms")
+    log("palette", f"{truncated} of {src.shape[0]} pairs have more than 256 colours (truncated)")
+    return out
+
+
+def phase_indexed_parity(device) -> float:
+    """Two full-width float32 indexed steps on `device` against the same two
+    on the CPU, from the same weights, on few-colour index maps; returns the
+    worst relative loss difference."""
+    from palette_and_histo_gan_tpu_torch import config_for_variant
+    from palette_and_histo_gan_tpu_torch.data import loader
+    from palette_and_histo_gan_tpu_torch.train import create_train_state, make_train_step
+
+    config = config_for_variant("indexed", deterministic_dropout=True, temp_folder=TEMP_FOLDER)
+    ref = create_train_state(config, "cpu", SEED)
+    dev = create_train_state(config, device, SEED)
+    dev.generator.load_state_dict(ref.generator.state_dict())
+    dev.discriminator.load_state_dict(ref.discriminator.state_dict())
+    small = config_for_variant("indexed", dataset_sizes=(10,))
+    train, _ = loader.indexed_datasets_from_arrays(
+        *loader.synthetic_indexed_arrays(small, SEED), "cpu", small.palette_ordering, SEED
+    )
+    with torch.no_grad():
+        src = train.sources[:4]
+        want = ref.generator(src.float(), deterministic=True, logits=True).argmax(-1)
+        got = dev.generator(src.to(device).float(), deterministic=True, logits=True).argmax(-1)
+    agree = float((got.cpu() == want).float().mean())
+    log("parity", f"indexed argmax maps: card and CPU agree on {agree:.6f} of pixels "
+        f"(tol {ARGMAX_AGREEMENT})")
+    if agree < ARGMAX_AGREEMENT:
+        raise AssertionError(f"argmax maps agree on {agree} < {ARGMAX_AGREEMENT}")
+    step = make_train_step(config)
+    worst = 0.0
+    for i in range(2):
+        src, tgt = train.sources[4 * i:4 * i + 4], train.targets[4 * i:4 * i + 4]
+        m_ref = {k: float(v) for k, v in step(ref, src, tgt).items()}
+        m_dev = {k: float(v) for k, v in step(dev, src.to(device), tgt.to(device)).items()}
+        check_finite(m_dev, "indexed parity step")
+        for k in m_ref:
+            rel = abs(m_dev[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-12)
+            worst = max(worst, rel)
+            log("parity", f"indexed step {i} {k}: {device.type} {m_dev[k]:.7g}  cpu {m_ref[k]:.7g}  "
+                f"rel {rel:.2e}")
+    if worst > PARITY_RTOL:
+        raise AssertionError(f"card and CPU indexed steps differ by {worst:.2e} > {PARITY_RTOL}")
+    return worst
+
+
+def phase_indexed_main_path(device, steps=8, update_steps=4) -> dict:
+    """The indexed dataset build on the card (K5) and the Trainer's fit;
+    returns the launch counts of that run."""
+    from palette_and_histo_gan_tpu_torch import config_for_variant
+    from palette_and_histo_gan_tpu_torch.data import loader
+    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, histogram_kernel, palette_kernel
+    from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
+
+    config = config_for_variant("indexed", batch_size=4, temp_folder=TEMP_FOLDER)
+    arrays = loader.synthetic_indexed_arrays(config, SEED)
+    for counter in (augment_kernel, histogram_kernel, palette_kernel):
+        counter.reset_launches()
+    datasets = loader.indexed_datasets_from_arrays(
+        *arrays, device, config.palette_ordering, config.seed
+    )
+    trainer = Trainer(config, device, datasets)
+    log("main", f"indexed: train {trainer.train_ds.n} / test {trainer.test_ds.n} pairs, batch "
+        f"{config.batch_size}, {config.compute_dtype}, palette ordering {config.palette_ordering}")
+    trainer.fit(steps=steps, update_steps=update_steps, callbacks=["evaluate_l1"])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(palette_kernel.launches)
+
+    for i, row in enumerate(trainer.history):
+        check_finite(row, f"indexed step {i}")
+        log("main", f"indexed step {i}: G total {row['generator/total_loss']:.5f}  "
+            f"G segmentation {row['generator/segmentation_loss']:.5f}  "
+            f"D total {row['discriminator/total_loss']:.5f}")
+    if len(trainer.history) != steps or trainer.state.step != steps:
+        raise AssertionError(f"{len(trainer.history)} steps logged, state at {trainer.state.step}")
+    l1_train, l1_test = trainer.report_l1()
+    if not all(math.isfinite(v) and 0.0 <= v <= 255.0 for v in (l1_train, l1_test)):
+        raise AssertionError(f"indexed L1 report out of range: {l1_train}, {l1_test}")
+    log("main", f"indexed L1 (0-255 RGBA scale) train {l1_train:.5f}  test {l1_test:.5f}")
+    cpu = loader.indexed_datasets_from_arrays(*arrays, "cpu", config.palette_ordering, config.seed)
+    for split, ours, ref in zip(("train", "test"), datasets, cpu):
+        for name in ("sources", "targets", "palettes"):
+            if not torch.equal(getattr(ours, name).cpu(), getattr(ref, name)):
+                raise AssertionError(f"card-built {split} {name} differ from the CPU-built ones")
+    log("main", "indexed datasets built on the card equal the CPU-built ones")
+    log("main", f"kernel launches in this run: {launches}")
+    if device.type == "cuda" and launches["K5"] < 4:
+        raise AssertionError(f"the indexed main path launched K5 {launches['K5']} times; needed 4")
+    return launches
+
+
+def phase_timed_chunk(device, variant: str, compute_dtype: str, config_overrides: dict,
+                      steps: int) -> dict:
     """One chunk of `steps` steps through Trainer.fit after a 2-step
     warm-up; returns ms/step, img/s and the peak device memory."""
     from palette_and_histo_gan_tpu_torch import config_for_variant
     from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
 
     config = config_for_variant(
-        "histogram", compute_dtype=compute_dtype, temp_folder=TEMP_FOLDER, **config_overrides
+        variant, compute_dtype=compute_dtype, temp_folder=TEMP_FOLDER, **config_overrides
     )
     trainer = Trainer(config, device, synthetic_datasets(config, device))
     trainer.fit(steps=2, update_steps=2)  # warm-up: cuDNN plans, allocator
@@ -439,7 +649,7 @@ def phase_timed_chunk(device, compute_dtype: str, config_overrides: dict, steps:
     }
     log(
         "timed",
-        f"{compute_dtype} batch {config.batch_size}, {steps} steps in {seconds:.4f} s: "
+        f"{variant} {compute_dtype} batch {config.batch_size}, {steps} steps in {seconds:.4f} s: "
         f"{out['ms_per_step']:.3f} ms/step, {out['img_per_s']:.1f} img/s, "
         f"peak {out['peak_gib']:.2f} GiB; last step G total "
         f"{last['generator/total_loss']:.5f} D total {last['discriminator/total_loss']:.5f}",
@@ -450,21 +660,38 @@ def phase_timed_chunk(device, compute_dtype: str, config_overrides: dict, steps:
 # ------------------------------------------------------------------- main
 
 
+LIBRARIES = (("phg_augment", "augment.cu"), ("phg_histogram", "histogram.cu"),
+             ("phg_palette", "palette.cu"))
+
+
 def build_kernels() -> None:
-    """Both libraries, with their nvcc processes at once."""
+    """The three libraries, with their nvcc processes at once."""
     from concurrent.futures import ThreadPoolExecutor
 
     from palette_and_histo_gan_tpu_torch.kernels import build
-    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, histogram_kernel
+    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, histogram_kernel, palette_kernel
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for job in [pool.submit(augment_kernel.library), pool.submit(histogram_kernel.library)]:
+    loaders = (augment_kernel.library, histogram_kernel.library, palette_kernel.library)
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        for job in [pool.submit(f) for f in loaders]:
             job.result()
-    for name, source in (("phg_augment", "augment.cu"), ("phg_histogram", "histogram.cu")):
+    for name, source in LIBRARIES:
         log("build", f"{source} -> sm_90a: nvcc {build.build_seconds.get(name, 0.0):.2f} s "
             "(0 when already built)")
-    log("build", f"both built and loaded in {time.perf_counter() - t0:.2f} s")
+    log("build", f"all built and loaded in {time.perf_counter() - t0:.2f} s")
+
+
+def kernel_entry(name, source, replaces, launches, max_abs_err, times) -> dict:
+    """One entry of the kernels line; `times` is (kernel ms, plain ms,
+    bound ms, what bounds it). No single PyTorch call computes any of these
+    functions, so library_ms is null."""
+    ms, plain_ms, bound_ms, bound_by = times
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
 
 
 def main() -> int:
@@ -496,45 +723,44 @@ def main() -> int:
             launches.update(packed=counts["packed"], rgba=counts["rgba"])
         launches.update({name: counts[name] for name in names})
 
-    f32 = phase_timed_chunk(device, "float32", dict(batch_size=4), steps=40)
+    pal = phase_palette_check(device)
+    worst = phase_indexed_parity(device)
+    log("parity", f"indexed: worst relative loss difference {worst:.2e} (tol {PARITY_RTOL})")
+    launches.update(phase_indexed_main_path(device))
+
+    f32 = phase_timed_chunk(device, "histogram", "float32", dict(batch_size=4), steps=40)
     bf16 = {
-        label: phase_timed_chunk(device, "bfloat16", dict(batch_size=1024, **overrides), steps=10)
+        label: phase_timed_chunk(device, "histogram", "bfloat16",
+                                 dict(batch_size=1024, **overrides), steps=10)
         for label, (overrides, _) in HIST_CONFIGS.items()
     }
+    idx_f32 = phase_timed_chunk(device, "indexed", "float32", dict(batch_size=4), steps=40)
+    idx_bf16 = phase_timed_chunk(device, "indexed", "bfloat16", dict(batch_size=1024), steps=10)
     if "jax" in sys.modules:
         raise AssertionError("the port loaded jax")
 
-    kernels = []
-    for entry in ("packed", "rgba"):
-        ms, plain_ms = kern["times"][(entry, 1024)]
-        kernels.append({
-            "name": f"augment_{entry}",
-            "route": "cuda",
-            "source": SOURCE,
-            "replaces": REPLACES[entry],
-            "launches": launches[entry],
-            "max_abs_err": kern["worst"][entry],
-            "ms": ms,
-            "plain_ms": plain_ms,
-        })
-    for name, (_, replaces, _) in HIST_KERNELS.items():
-        ms, plain_ms = hist["times"][(name, 1024)]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": HIST_SOURCE,
-            "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": hist["worst"][name],
-            "ms": ms,
-            "plain_ms": plain_ms,
-        })
+    kernels = [
+        kernel_entry(f"augment_{entry}", SOURCE, REPLACES[entry], launches[entry],
+                     kern["worst"][entry], kern["times"][(entry, 1024)])
+        for entry in ("packed", "rgba")
+    ]
+    kernels += [
+        kernel_entry(name, HIST_SOURCE, replaces, launches[name], hist["worst"][name],
+                     hist["times"][(name, 1024)])
+        for name, (_, replaces, _) in HIST_KERNELS.items()
+    ]
+    kernels.append(kernel_entry("K5", PAL_SOURCE, PAL_REPLACES, launches["K5"], 0,
+                                pal["times"][pal["n_images"]]))
     log("summary", f"{card}: b4 kernel/plain ms "
         + ", ".join(f"{e} {kern['times'][(e, 4)][0]:.4f}/{kern['times'][(e, 4)][1]:.4f}" for e in ("packed", "rgba"))
         + ", " + ", ".join(f"{n} {hist['times'][(n, 4)][0]:.4f}/{hist['times'][(n, 4)][1]:.4f}" for n in HIST_KERNELS)
-        + f"; f32 b4 {f32['ms_per_step']:.3f} ms/step {f32['img_per_s']:.1f} img/s; bf16 b1024 "
+        + f", K5 {pal['times'][4][0]:.4f}/{pal['times'][4][1]:.4f}"
+        + f"; histogram f32 b4 {f32['ms_per_step']:.3f} ms/step {f32['img_per_s']:.1f} img/s; bf16 b1024 "
         + ", ".join(f"{label} {r['ms_per_step']:.3f} ms/step {r['img_per_s']:.1f} img/s {r['peak_gib']:.2f} GiB"
                     for label, r in bf16.items())
+        + f"; indexed f32 b4 {idx_f32['ms_per_step']:.3f} ms/step {idx_f32['img_per_s']:.1f} img/s"
+        + f", bf16 b1024 {idx_bf16['ms_per_step']:.3f} ms/step {idx_bf16['img_per_s']:.1f} img/s "
+        + f"{idx_bf16['peak_gib']:.2f} GiB"
         + f"; smoke {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,20 +1,21 @@
 """Command-line trainer of the PyTorch port.
 
-    python -m palette_and_histo_gan_tpu_torch.cli --model histogram \
-        --steps 8 --update-steps 4 --device cuda --synthetic
+    python -m palette_and_histo_gan_tpu_torch.cli --model indexed \
+        --steps 8 --update-steps 4 --synthetic
 
 Flags follow palette_and_histo_gan_tpu/cli.py where the port has the
-feature. `--synthetic` trains on random uint8 sprites of the dataset's
-split sizes, made from --seed, for machines without the dataset.
+feature. It trains on the card ("cuda") unless `--device` names another
+device ("cpu" for the CPU). `--synthetic` trains on seeded sprites of the
+dataset's split sizes, for machines without the dataset: random uint8
+pixels for the RGBA variants, few-colour sprites for the indexed variant
+(data/loader.py::synthetic_indexed_arrays).
 """
 
 from __future__ import annotations
 
 import argparse
 
-from .config import config_for_variant, set_f32_parity_mode
-
-PORTED_VARIANTS = ("baseline-no-aug", "baseline", "histogram")
+from .config import MODEL_VARIANTS, PALETTE_ORDERINGS, config_for_variant, set_f32_parity_mode
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -22,7 +23,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="phg-train-torch",
         description="palette-and-histo-gan trainer, PyTorch port",
     )
-    p.add_argument("--model", choices=PORTED_VARIANTS, default="baseline-no-aug")
+    p.add_argument("--model", choices=MODEL_VARIANTS, default="baseline-no-aug")
+    p.add_argument("--palette-ordering", choices=PALETTE_ORDERINGS, default="grayness")
+    p.add_argument("--lambda-segmentation", type=float, default=None)
     p.add_argument("--epochs", type=int, default=160)
     p.add_argument("--steps", type=int, default=None, help="override epoch-derived steps")
     p.add_argument("--update-steps", type=int, default=None)
@@ -32,11 +35,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-root", type=str, default=None)
     p.add_argument(
         "--synthetic", action="store_true",
-        help="train on seeded random sprites instead of the dataset",
+        help="train on seeded synthetic sprites instead of the dataset",
     )
     p.add_argument(
-        "--device", type=str, required=True,
-        help="'cuda', 'cuda:N' or 'cpu'; no fallback between them",
+        "--device", type=str, default="cuda",
+        help="'cuda' (the default), 'cuda:N' or 'cpu'; no fallback between them",
     )
     p.add_argument(
         "--down-filters", type=int, nargs=6, default=None,
@@ -53,9 +56,11 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     overrides = dict(
-        epochs=args.epochs, batch_size=args.batch_size, seed=args.seed,
-        compute_dtype=args.compute_dtype,
+        palette_ordering=args.palette_ordering, epochs=args.epochs,
+        batch_size=args.batch_size, seed=args.seed, compute_dtype=args.compute_dtype,
     )
+    if args.lambda_segmentation is not None:
+        overrides["lambda_segmentation"] = args.lambda_segmentation
     if args.data_root is not None:
         overrides["data_root"] = args.data_root
     if args.down_filters is not None:
@@ -67,12 +72,20 @@ def main(argv=None) -> int:
         # float32 means the reference's float32: no TF32 convolutions
         set_f32_parity_mode()
 
-    from .data.loader import datasets_from_arrays, synthetic_arrays
+    from .data import loader
     from .train.trainer import Trainer
 
     datasets = None
     if args.synthetic:
-        datasets = datasets_from_arrays(*synthetic_arrays(config, args.seed), args.device)
+        if config.is_indexed:
+            datasets = loader.indexed_datasets_from_arrays(
+                *loader.synthetic_indexed_arrays(config, args.seed), args.device,
+                config.palette_ordering, config.seed,
+            )
+        else:
+            datasets = loader.datasets_from_arrays(
+                *loader.synthetic_arrays(config, args.seed), args.device
+            )
     trainer = Trainer(config, args.device, datasets=datasets)
     steps = args.steps if args.steps is not None else config.steps
     update_steps = args.update_steps if args.update_steps is not None else config.update_steps

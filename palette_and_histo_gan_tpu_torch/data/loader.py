@@ -1,12 +1,21 @@
-"""Device-resident data: decode once, keep the uint8 splits on the device,
+"""Device-resident data: decode once, keep the splits on the device,
 sample per epoch on the device.
 
-Mirrors palette_and_histo_gan_tpu/data/loader.py (RGBA part): the PNGs of
+Mirrors palette_and_histo_gan_tpu/data/loader.py: the PNGs of
 <root>/<train|test>/<i-direction>/<n>.png decode once at start-up through
-the JAX package's ctypes decoder (`palette_and_histo_gan_tpu.native.png_io`,
-no JAX) or PIL; transparent pixels are blackened once; the splits stay on
-the device as uint8 and the train step gathers its batch there.
-`datasets_from_arrays` hands the Trainer arrays that are already in memory.
+the port's native decoder (native/png_io.py, built at first use) or, where
+it cannot be built, PIL; transparent pixels are blackened once.
+
+  * RGBA variants: the splits stay on the device as uint8 and the train
+    step gathers its batch there (`datasets_from_arrays` hands the Trainer
+    arrays already in memory).
+  * Indexed variant: each source/target pair gets its joint palette on the
+    device (ops/palette.py), and kernel K5 turns the sources and the
+    targets into int32 index maps against it (two launches a split). The
+    maps and palettes stay on the device (`indexed_datasets_from_arrays`).
+    Under "shuffled" the palettes' permutations come from a
+    `torch.Generator` seeded per split from the config's seed, not from
+    `jax.random`: the two packages shuffle differently.
 """
 
 from __future__ import annotations
@@ -17,14 +26,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from palette_and_histo_gan_tpu.config import DIRECTION_FOLDERS
-
-from ..config import Config
+from ..config import DIRECTION_FOLDERS, INVALID_INDEX_COLOR, Config
+from ..native import png_io
+from ..ops import palette as palette_ops
 
 
 def _decode_png(path: str) -> np.ndarray:
-    from palette_and_histo_gan_tpu.native import png_io
-
     arr = png_io.decode_png_rgba(path)
     if arr is not None:
         return arr
@@ -36,8 +43,6 @@ def _decode_png(path: str) -> np.ndarray:
 
 def load_split_arrays(data_root: str, split: str, direction: int, n: int) -> np.ndarray:
     """The n images of one pose of a split as (n, 64, 64, 4) uint8."""
-    from palette_and_histo_gan_tpu.native import png_io
-
     folder = os.path.join(data_root, split, DIRECTION_FOLDERS[direction])
     if not os.path.isdir(folder):
         raise FileNotFoundError(
@@ -80,30 +85,86 @@ def _to_device(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(prepare_rgba(arr))).to(device)
 
 
+def _check_arrays(arrays) -> None:
+    for a in arrays:
+        if a.dtype != np.uint8 or a.shape[1:] != (64, 64, 4):
+            raise ValueError(f"expected uint8 (N, 64, 64, 4), got {a.dtype} {a.shape}")
+
+
 def datasets_from_arrays(
     train_sources, train_targets, test_sources, test_targets, device
 ) -> tuple[RgbaDataset, RgbaDataset]:
     """(train, test) splits on `device` from (N, 64, 64, 4) uint8 arrays."""
     arrays = (train_sources, train_targets, test_sources, test_targets)
-    for a in arrays:
-        if a.dtype != np.uint8 or a.shape[1:] != (64, 64, 4):
-            raise ValueError(f"expected uint8 (N, 64, 64, 4), got {a.dtype} {a.shape}")
+    _check_arrays(arrays)
     ts, tt, es, et = (_to_device(a, device) for a in arrays)
     return RgbaDataset(ts, tt), RgbaDataset(es, et)
 
 
+def load_split_pairs(config: Config):
+    """(train_sources, train_targets, test_sources, test_targets) uint8
+    arrays decoded from config's dataset roots."""
+    src, tgt = config.source_direction, config.target_direction
+    return tuple(
+        load_concat_split(config, split, direction)
+        for split in ("train", "test")
+        for direction in (src, tgt)
+    )
+
+
 def make_rgba_datasets(config: Config, device) -> tuple[RgbaDataset, RgbaDataset]:
     """(train, test) splits decoded from config's dataset roots, on `device`."""
-    split = {
-        (s, d): load_concat_split(config, s, d)
-        for s in ("train", "test")
-        for d in (config.source_direction, config.target_direction)
-    }
-    src, tgt = config.source_direction, config.target_direction
-    return datasets_from_arrays(
-        split["train", src], split["train", tgt], split["test", src], split["test", tgt],
-        device,
+    return datasets_from_arrays(*load_split_pairs(config), device)
+
+
+class IndexedDataset(NamedTuple):
+    """An indexed-colour split resident on the device: per pair its joint
+    palette and the index maps of source and target against it."""
+
+    sources: torch.Tensor  # (N, 64, 64, 1) int32
+    targets: torch.Tensor  # (N, 64, 64, 1) int32
+    palettes: torch.Tensor  # (N, 256, 4) int32
+
+    @property
+    def n(self) -> int:
+        return self.sources.shape[0]
+
+
+def indexed_datasets_from_arrays(
+    train_sources, train_targets, test_sources, test_targets, device,
+    palette_ordering: str = "grayness", seed: int = 0,
+) -> tuple[IndexedDataset, IndexedDataset]:
+    """(train, test) indexed splits on `device` from (N, 64, 64, 4) uint8
+    arrays: transparent pixels blackened, each pair's joint palette, then
+    kernel K5 (its plain version on the CPU) on the sources and on the
+    targets against the same palettes. "shuffled" draws the train split's
+    permutations from a generator seeded 2 * seed and the test split's
+    from one seeded 2 * seed + 1."""
+    arrays = (train_sources, train_targets, test_sources, test_targets)
+    _check_arrays(arrays)
+    ts, tt, es, et = (_to_device(a, device) for a in arrays)
+    splits = []
+    for i, (src, tgt) in enumerate(((ts, tt), (es, et))):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(2 * seed + i)
+        palettes = palette_ops.joint_palettes(src, tgt, palette_ordering, gen)
+        splits.append(IndexedDataset(
+            palette_ops.rgba_to_indexed(src, palettes),
+            palette_ops.rgba_to_indexed(tgt, palettes),
+            palettes,
+        ))
+    return splits[0], splits[1]
+
+
+def make_indexed_datasets(config: Config, device) -> tuple[IndexedDataset, IndexedDataset]:
+    """(train, test) indexed splits decoded from config's dataset roots."""
+    return indexed_datasets_from_arrays(
+        *load_split_pairs(config), device, config.palette_ordering, config.seed
     )
+
+
+def gather_indexed_batch(ds: IndexedDataset, idx: torch.Tensor):
+    return ds.sources[idx], ds.targets[idx], ds.palettes[idx]
 
 
 def synthetic_arrays(config: Config, seed: int):
@@ -115,6 +176,36 @@ def synthetic_arrays(config: Config, seed: int):
         rng.integers(0, 256, (n, 64, 64, 4), dtype=np.uint8)
         for n in (n_train, n_train, n_test, n_test)
     )
+
+
+def synthetic_indexed_arrays(config: Config, seed: int):
+    """Few-colour uint8 sprites of the configured split sizes, made from
+    `seed`, for the indexed variant (random pixels would fill every palette
+    and index almost every pixel 0): each pair draws its pixels from its
+    own pool of 8-48 colours, the first of them transparent (the loader
+    blackens it); every 5th pair's pool holds the hotpink filler colour,
+    whose pixels index past 255; every 25th pair's source is random pixels,
+    more than 256 colours, whose palette truncates."""
+    rng = np.random.default_rng(seed)
+
+    def split(n):
+        src = np.empty((n, 64, 64, 4), np.uint8)
+        tgt = np.empty_like(src)
+        for i in range(n):
+            k = int(rng.integers(8, 49))
+            pool = rng.integers(0, 256, (k, 4), dtype=np.uint8)
+            pool[:, 3] = 255
+            pool[0, 3] = 0
+            if i % 5 == 1:
+                pool[1] = INVALID_INDEX_COLOR
+            src[i] = pool[rng.integers(0, k, (64, 64))]
+            tgt[i] = pool[rng.integers(0, k, (64, 64))]
+            if i % 25 == 3:
+                src[i] = rng.integers(0, 256, (64, 64, 4), dtype=np.uint8)
+        return src, tgt
+
+    n_train, n_test = config.train_size, sum(config.test_sizes)
+    return (*split(n_train), *split(n_test))
 
 
 def batch_indices(

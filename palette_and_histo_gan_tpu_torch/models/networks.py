@@ -6,7 +6,10 @@ networks.py:7-98):
   * UpBlock: transposed conv k4 s2 SAME, no bias, InstanceNorm,
     [dropout 0.5], ReLU;
   * UnetGenerator: six down, six up, the raw input as the last skip
-    (:539-622), head conv k4 s1 SAME with bias, tanh;
+    (:539-622), head conv k4 s1 SAME with bias, then tanh (RGBA), a
+    float32 softmax over the channels (indexed: 1 input channel, 256
+    outputs) or nothing ("linear": logits in the compute dtype, as flax
+    returns them at :609-614);
   * PatchDiscriminator: concat([target, source]), one no-norm DownBlock(64),
     head conv k4 s1 SAME with bias, (B, 32, 32, 1) patch logits (:625-666).
 
@@ -166,11 +169,8 @@ class UnetGenerator(nn.Module):
         up_filters: Sequence[int] = (512, 512, 256, 128, 64, 32),
     ):
         super().__init__()
-        if last_activation not in ("tanh", "linear"):
-            raise NotImplementedError(
-                f"last_activation={last_activation!r}: the softmax head belongs "
-                "to the indexed model, not ported yet (ROADMAP.md)"
-            )
+        if last_activation not in ("tanh", "softmax", "linear"):
+            raise ValueError(f"unknown activation {last_activation!r}")
         self.last_activation = last_activation
         self.down = nn.ModuleList()
         cin = input_channels
@@ -185,8 +185,12 @@ class UnetGenerator(nn.Module):
         self.head = HeadConv(cin, output_channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
-                deterministic: bool = False) -> torch.Tensor:
-        """(B, 64, 64, C) NHWC -> (B, 64, 64, out) float32 NHWC."""
+                deterministic: bool = False, logits: bool = False) -> torch.Tensor:
+        """(B, 64, 64, C) NHWC -> (B, 64, 64, out) NHWC: float32 after tanh
+        or softmax; the head's output in the compute dtype under "linear"
+        or with `logits` (the softmax head's logits, which the indexed step
+        and generate take: argmax and the log-space losses need no
+        probabilities)."""
         x = _nchw(x)
         inputs = x
         skips = []
@@ -198,9 +202,11 @@ class UnetGenerator(nn.Module):
             x = block(x, generator, deterministic)
             x = torch.cat([x, skip.to(x.dtype)], dim=1)
         x = self.head(x)
+        if logits or self.last_activation == "linear":
+            return _nhwc(x)
         if self.last_activation == "tanh":
-            x = torch.tanh(x.float())
-        return _nhwc(x)
+            return _nhwc(torch.tanh(x.float()))
+        return _nhwc(torch.softmax(x.float(), dim=1))
 
 
 class PatchDiscriminator(nn.Module):

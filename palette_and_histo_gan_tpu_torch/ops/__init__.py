@@ -1,6 +1,8 @@
 """Tensor ops: image transforms, the fused augmentation (CUDA kernel and its
-plain version) and the differentiable RGB-uv color histogram (plain
-PyTorch, and the fused histogram kernels with their plain versions)."""
+plain version), the differentiable RGB-uv color histogram (plain
+PyTorch, and the fused histogram kernels with their plain versions) and
+the palette ops of the indexed variant (palette indexing: CUDA kernel and
+its plain version)."""
 
 from . import (
     augment,
@@ -11,6 +13,9 @@ from . import (
     histogram_pallas2,
     histogram_pallas3,
     image,
+    palette,
+    palette_kernel,
+    palette_pallas,
 )
 
 __all__ = [
@@ -22,4 +27,7 @@ __all__ = [
     "histogram_pallas2",
     "histogram_pallas3",
     "image",
+    "palette",
+    "palette_kernel",
+    "palette_pallas",
 ]

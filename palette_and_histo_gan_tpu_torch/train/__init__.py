@@ -1,8 +1,14 @@
-"""Training engine: state, losses, the train step, the chunked loop, Trainer."""
+"""Training engine: state, losses, the train steps, the chunked loop, Trainer."""
 
 from .losses import bce_with_logits, discriminator_loss, generator_loss
 from .state import KerasAdam, TrainState, build_models, create_train_state, param_count
-from .steps import make_train_chunk, make_train_step, rgba_train_step
+from .steps import (
+    generate,
+    indexed_train_step,
+    make_train_chunk,
+    make_train_step,
+    rgba_train_step,
+)
 
 __all__ = [
     "bce_with_logits",
@@ -13,6 +19,8 @@ __all__ = [
     "build_models",
     "create_train_state",
     "param_count",
+    "generate",
+    "indexed_train_step",
     "make_train_chunk",
     "make_train_step",
     "rgba_train_step",

@@ -3,10 +3,9 @@
 Mirrors palette_and_histo_gan_tpu/train/trainer.py:59-240 (`Trainer.fit`):
 training runs in chunks of `update_steps` steps whose metrics stay on the
 device and come to the host once per chunk; between chunks the host writes
-the per-step scalars at the reference's quantized step (through the JAX
-package's JAX-free `utils/logging.py` writer), prints the ETA and, with
-the "evaluate_l1" callback, the train/test L1. `phase_seconds` accumulates
-wall time per phase.
+the per-step scalars at the reference's quantized step (utils/logging.py),
+prints the ETA and, with the "evaluate_l1" callback, the train/test L1.
+`phase_seconds` accumulates wall time per phase.
 
 Not ported yet (ROADMAP.md, Queue 1): preview grids, checkpoints, weight
 export, FID and the discriminator debug maps. The callbacks that ask for
@@ -21,12 +20,11 @@ from typing import Sequence
 
 import torch
 
-from palette_and_histo_gan_tpu.utils import logging as log_utils
-from palette_and_histo_gan_tpu.utils.io import seconds_to_human_readable
-
 from ..config import Config, check_supported
-from ..data.loader import RgbaDataset, make_rgba_datasets
+from ..data.loader import IndexedDataset, RgbaDataset, make_indexed_datasets, make_rgba_datasets
 from ..eval import metrics as eval_metrics
+from ..utils import logging as log_utils
+from ..utils.io import seconds_to_human_readable
 from .state import TrainState, create_train_state, param_count
 from .steps import make_train_chunk
 
@@ -46,16 +44,18 @@ def show_eta(training_start_time, step_start_time, current_step, starting_step,
 
 
 class Trainer:
-    """Training loop of the RGBA variants on one explicit device.
+    """Training loop of any variant on one explicit device.
 
-    `datasets` is a (train, test) pair of RgbaDatasets already on `device`
-    (see data.loader.datasets_from_arrays); by default the splits are
-    decoded from config's dataset roots. There is no fallback between
-    devices: "cuda" without a card raises.
+    `datasets` is a (train, test) pair already on `device`: RgbaDatasets
+    (data.loader.datasets_from_arrays) or, for the indexed variant,
+    IndexedDatasets (data.loader.indexed_datasets_from_arrays). By default
+    the splits are decoded from config's dataset roots (and, for the
+    indexed variant, indexed on the device through kernel K5). There is no
+    fallback between devices: "cuda" without a card raises.
     """
 
     def __init__(self, config: Config, device: torch.device | str,
-                 datasets: tuple[RgbaDataset, RgbaDataset] | None = None):
+                 datasets: tuple | None = None):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -65,9 +65,14 @@ class Trainer:
         check_supported(config, self.device)
         self.config = config
         if datasets is None:
-            datasets = make_rgba_datasets(config, self.device)
+            make = make_indexed_datasets if config.is_indexed else make_rgba_datasets
+            datasets = make(config, self.device)
         self.train_ds, self.test_ds = datasets
+        kind = IndexedDataset if config.is_indexed else RgbaDataset
         for ds in datasets:
+            if not isinstance(ds, kind):
+                raise TypeError(f"the {config.model} variant trains on {kind.__name__}s, "
+                                f"got {type(ds).__name__}")
             if ds.sources.device != self.device:
                 raise ValueError(f"dataset on {ds.sources.device}, trainer on {self.device}")
 
@@ -162,7 +167,7 @@ class Trainer:
         if num_images is None:
             num_images = sum(self.config.test_sizes)
         values = eval_metrics.report_l1(
-            self.state.generator, self.train_ds, self.test_ds, num_images,
+            self.config, self.state.generator, self.train_ds, self.test_ds, num_images,
             self.config.seed + 2,
         )
         if self.writer is not None and step is not None:

@@ -30,8 +30,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from palette_and_histo_gan_tpu.config import config_for_variant
+from palette_and_histo_gan_tpu import config as jconfig
 from palette_and_histo_gan_tpu.models import networks as jnet
+from palette_and_histo_gan_tpu_torch.config import config_for_variant
 from palette_and_histo_gan_tpu_torch.models import convert
 from palette_and_histo_gan_tpu_torch.models import networks as tnet
 from palette_and_histo_gan_tpu_torch.ops import histogram as th
@@ -80,8 +81,9 @@ def test_head_conv_pads_one_before_two_after():
 @pytest.fixture(scope="module")
 def narrow_flax():
     config = config_for_variant("histogram", **NARROW)
-    gen = jnet.build_generator(config)
-    disc = jnet.build_discriminator(config)
+    jax_config = jconfig.config_for_variant("histogram", **NARROW)
+    gen = jnet.build_generator(jax_config)
+    disc = jnet.build_discriminator(jax_config)
     x = jnp.zeros((1, 64, 64, 4))
     g = gen.init(jax.random.PRNGKey(1), x, deterministic=True)["params"]
     d = disc.init(jax.random.PRNGKey(2), x, x)["params"]

@@ -14,9 +14,12 @@
   Frobenius norm; measured 4.7e-4 at worst. Elementwise the worst entry is
   ~1% off: Adam's m / (sqrt(v) + eps) turns the summation-order error of a
   gradient near eps into a large relative error of its update);
-* the loader on a synthetic dataset root (the tests/test_data.py pattern)
-  and the epoch-permutation sampler.
+* the loader on a synthetic dataset root (the tests/test_data.py pattern),
+  the port's own PNG decoder against PIL, and the epoch-permutation
+  sampler.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -26,11 +29,12 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from palette_and_histo_gan_tpu.config import config_for_variant
+from palette_and_histo_gan_tpu import config as jconfig
 from palette_and_histo_gan_tpu.data import loader as jloader
 from palette_and_histo_gan_tpu.train import state as jstate
 from palette_and_histo_gan_tpu.train import steps as jsteps
 from palette_and_histo_gan_tpu_torch import cli as tcli
+from palette_and_histo_gan_tpu_torch import config as tconfig
 from palette_and_histo_gan_tpu_torch.data import loader as tloader
 from palette_and_histo_gan_tpu_torch.models import convert
 from palette_and_histo_gan_tpu_torch.train import state as tstate
@@ -40,15 +44,21 @@ from tests.test_data import _write_synthetic_root
 NARROW = dict(down_filters=(8,) * 6, up_filters=(8,) * 6)
 
 
+def configs(variant, **kw):
+    """The JAX package's and the port's configurations, built from the same
+    keyword arguments."""
+    return jconfig.config_for_variant(variant, **kw), tconfig.config_for_variant(variant, **kw)
+
+
 def test_keras_adam_matches_jax():
-    config = config_for_variant("histogram")
+    jax_config, config = configs("histogram")
     rng = np.random.default_rng(0)
     p0 = rng.standard_normal((64,)).astype(np.float32)
     grads = [rng.standard_normal((64,)).astype(np.float32) * s for s in (1.0, 0.3)]
     for g in grads:
         g[:8] *= 1e-7  # near-zero gradients, where the eps placement matters
 
-    tx = jstate.make_optimizer(config)
+    tx = jstate.make_optimizer(jax_config)
     params, opt = jnp.asarray(p0), tx.init(jnp.asarray(p0))
     p = torch.nn.Parameter(torch.from_numpy(p0.copy()))
     ours = tstate.KerasAdam([p], lr=config.learning_rate,
@@ -69,9 +79,11 @@ def test_keras_adam_matches_jax():
     assert np.all(d_torch > 1.5 * d_keras)
 
 
-def _same_init_states(config):
-    models = jstate.build_models(config)
-    jax_state = jstate.create_train_state(config, models, jax.random.PRNGKey(0))
+def same_init_states(jax_config, config):
+    """The JAX state from PRNGKey(0) and the port's state holding the same
+    weights, bridged."""
+    models = jstate.build_models(jax_config)
+    jax_state = jstate.create_train_state(jax_config, models, jax.random.PRNGKey(0))
     state = tstate.create_train_state(config, "cpu", seed=0)
     convert.load_flax_params(
         state.generator, state.discriminator,
@@ -89,18 +101,18 @@ def test_three_histogram_steps_match_jax(histogram_impl, histogram_bwd):
     """The default histogram and the three kernel-backed configurations;
     the JAX step runs its Pallas kernels in interpret mode, the port's CPU
     tensors the kernels' plain versions."""
-    config = config_for_variant(
+    jax_config, config = configs(
         "histogram", deterministic_dropout=True, augment_probability=0.0,
         donate_state=False, histogram_impl=histogram_impl,
         histogram_bwd=histogram_bwd, **NARROW,
     )
-    models, jax_state, state = _same_init_states(config)
+    models, jax_state, state = same_init_states(jax_config, config)
     g0 = {k: v.clone() for k, v in state.generator.state_dict().items()}
     d0 = {k: v.clone() for k, v in state.discriminator.state_dict().items()}
     jax_g0 = jax.tree_util.tree_map(np.asarray, jax_state.g_params)
     jax_d0 = jax.tree_util.tree_map(np.asarray, jax_state.d_params)
 
-    jax_step = jsteps.make_train_step(config, models)
+    jax_step = jsteps.make_train_step(jax_config, models)
     torch_step = tsteps.make_train_step(config)
     rng = np.random.default_rng(1)
     for _ in range(3):
@@ -134,9 +146,9 @@ def test_three_histogram_steps_match_jax(histogram_impl, histogram_bwd):
 def test_loader_matches_jax_on_synthetic_root(tmp_path):
     root = str(tmp_path / "ds")
     _write_synthetic_root(root, 10, seed=4)
-    config = config_for_variant("baseline", data_root=root, dataset_sizes=(10,))
+    jax_config, config = configs("baseline", data_root=root, dataset_sizes=(10,))
     ours = tloader.make_rgba_datasets(config, "cpu")
-    ref = jloader.make_rgba_datasets(config)
+    ref = jloader.make_rgba_datasets(jax_config)
     for o, r in zip(ours, ref):
         assert o.n == r.n
         assert o.sources.dtype == torch.uint8
@@ -145,8 +157,28 @@ def test_loader_matches_jax_on_synthetic_root(tmp_path):
     assert (ours[0].n, ours[1].n) == (9, 1)
 
 
+def test_native_decoder_builds_and_matches_pil(tmp_path):
+    """The port's own PNG decoder, compiled at first use, decodes a split
+    as PIL does."""
+    from PIL import Image
+
+    from palette_and_histo_gan_tpu_torch.native import png_io
+
+    root = str(tmp_path / "ds")
+    _write_synthetic_root(root, 4, seed=2)
+    folder = os.path.join(root, "train", "2-front")
+    batch = png_io.decode_folder(folder, 4)
+    assert batch is not None, "the native decoder did not build"
+    for i in range(4):
+        with Image.open(os.path.join(folder, f"{i}.png")) as im:
+            np.testing.assert_array_equal(batch[i], np.asarray(im.convert("RGBA")))
+        np.testing.assert_array_equal(png_io.decode_png_rgba(os.path.join(folder, f"{i}.png")),
+                                      batch[i])
+    assert png_io.decode_folder(folder, 5) is None  # 4.png is missing
+
+
 def test_missing_dataset_root_raises(tmp_path):
-    config = config_for_variant("baseline", data_root=str(tmp_path / "none"))
+    config = tconfig.config_for_variant("baseline", data_root=str(tmp_path / "none"))
     with pytest.raises(FileNotFoundError, match="not in this repository"):
         tloader.make_rgba_datasets(config, "cpu")
 
