@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: compiles the fused augmentation kernel (csrc/augment.cu), the
      fused histogram kernels (csrc/histogram.cu) and the palette index
      kernel (csrc/palette.cu) with nvcc for sm_90a from this checkout, the
-     three nvcc processes at once.
+     three nvcc processes at once; prints ptxas' registers and spills of
+     the bfloat16 histogram backward and counts its HGMMA (wgmma)
+     instructions in the library's SASS (cuobjdump): none fails.
   3. augment kernel vs plain: every input format x float32/bfloat16 output
      x normalize on/off, at B=4 and B=1024, on the same draws; float32
      within 5e-4 on the 0-255 scale, bfloat16 within one bfloat16 ulp
@@ -59,12 +61,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      1024 (10 steps) under "xla"/"tri", bfloat16 batch 1024 under
      "pallas", "pallas2" and histogram_bwd="pallas"; indexed float32 batch
      4 (40 steps) and bfloat16 batch 1024 (10 steps); finite losses,
-     ms/step, img/s, peak device memory.
+     ms/step, img/s, peak device memory. The histogram launch counts are
+     set to 0 before each warm-up and read after its chunk: under
+     "pallas2" and histogram_bwd="pallas" the bfloat16 backward (the
+     tensor-core kernel, K4b and K4c) must run once a step, 12 times.
 
 The kernels line gives each kernel's time at the main path's largest
-shape beside its bound: the larger of the bytes it must move (inputs read
+shape beside its bound: the largest of the bytes it must move (inputs read
 once, outputs written once) over 3.35 TB/s and its operations over the
-card's peak for their type (PEAK).
+card's peak for their type (PEAK); for the histogram kernels the products
+at the chain's peak and the elementwise chain at float32's
+(ops/histogram_kernel.py::work). K4b and K4c also give the bfloat16
+backward's launches in the b1024 bf16 chunks (bf16_launches).
 """
 
 from __future__ import annotations
@@ -100,15 +108,19 @@ HIST_KERNELS = {
 #  * float32: the same elementwise chain op for op; the sums over 4096
 #    pixels (forward) and over 64 bins (backward) run in another order;
 #  * bfloat16: the products are exact in float32 on both sides, but a
-#    float32 sum in another order can put a bfloat16 rounding of m1, da or
+#    float32 sum in another order (for the backward, the tensor cores'
+#    accumulation) can put a bfloat16 rounding of m1, da or
 #    a per-pixel reduction on the other side of a tie, one bfloat16 ulp
 #    (2^-8 relative) of that value; the backward allows two such ulps of
-#    the largest row. K4c's approximate reciprocal (plain: exact) can do
-#    the same.
+#    the largest row. The approximate reciprocal (plain: exact) rounds to
+#    the same bfloat16 (tests/test_torch_histogram_bwd_bf16.py).
 HIST_TOL = {
     ("fwd", "float32"): 1e-5, ("bwd", "float32"): 1e-4,
     ("fwd", "bfloat16"): 1e-4, ("bwd", "bfloat16"): 8e-3,
 }
+# the backwards whose bfloat16 chain runs the tensor-core kernel
+# (hist_bwd_bf16); their b1024 bf16 chunks must launch it every step
+BF16_BACKWARDS = ("K4b", "K4c")
 # the histogram configurations, as config_for_variant overrides, and the
 # kernels each one runs on the card
 HIST_CONFIGS = {
@@ -134,11 +146,12 @@ PEAK = {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12, "int32": 132 * 6
 AUGMENT_OPS_PER_PIXEL = 40
 
 
-def bound(nbytes: float, ops: float, op_type: str) -> tuple[float, str]:
+def bound(nbytes: float, *ops: tuple[float, str]) -> tuple[float, str]:
     """The least time the card could take for this work, in ms, and what
-    sets it: bytes over the memory rate or operations over their peak."""
+    sets it: bytes over the memory rate, or the slowest of the (count,
+    type) operation terms over their peak (each type on its own units)."""
     t_bytes = 1e3 * nbytes / PEAK["bytes"]
-    t_ops = 1e3 * ops / PEAK[op_type]
+    t_ops = max(1e3 * n / PEAK[op_type] for n, op_type in ops)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -262,7 +275,7 @@ def phase_kernel_vs_plain(device) -> dict:
             p1, k1, k2, p2 = (cuda_ms(f, iters) for f in (plain, kern, kern, plain))
             moved = nbytes(src, tgt, *draws) + 2 * b * 64 * 64 * 4 * out_dtype.itemsize
             times[(entry, b)] = ((k1 + k2) / 2, (p1 + p2) / 2,
-                                 *bound(moved, AUGMENT_OPS_PER_PIXEL * 2 * b * 4096, "float32"))
+                                 *bound(moved, (AUGMENT_OPS_PER_PIXEL * 2 * b * 4096, "float32")))
             log(
                 "kernel",
                 f"time B={b} {fmt} -> {str(out_dtype)[6:]}: kernel {k1:.4f} / {k2:.4f} ms, "
@@ -333,6 +346,8 @@ def phase_histogram_times(device) -> dict:
     """Kernel and plain version in each regime's chain, at its batch:
     plain, kernel, kernel, plain. Returns per (kernel, batch) the mean
     kernel and plain milliseconds."""
+    from palette_and_histo_gan_tpu_torch.ops import histogram_kernel as hk
+
     times = {}
     for b, compute, iters, plain_iters in ((1024, "bfloat16", 20, 3), (4, "float32", 200, 20)):
         logs, iy, g = histogram_inputs(b, device, SEED)
@@ -348,15 +363,11 @@ def phase_histogram_times(device) -> dict:
             p1 = cuda_ms(plain, plain_iters)
             k1, k2 = cuda_ms(kern, iters), cuda_ms(kern, iters)
             p2 = cuda_ms(plain, plain_iters)
-            # products only: forward 2 x 64 x 64 x HW FLOP a channel and
-            # image, the backward (m1 and da) twice that; inputs logs, Iy
-            # (and the cotangent), output the planes (or the rows)
-            products = 2 * b * 3 * 64 * 64 * logs.shape[-1]
-            if HIST_KERNELS[name][0] == "fwd":
-                moved = nbytes(logs, iy) + b * 3 * 64 * 64 * 4
-            else:
-                moved, products = nbytes(logs, iy, g) + b * 4 * logs.shape[-1] * 4, 2 * products
-            times[(name, b)] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound(moved, products, chain))
+            # the products at the chain's peak (bfloat16: the tensor
+            # cores), the elementwise chain at float32's, the bytes
+            w = hk.work(HIST_KERNELS[name][0], b, logs.shape[-1])
+            times[(name, b)] = ((k1 + k2) / 2, (p1 + p2) / 2,
+                                *bound(w["bytes"], (w["products"], chain), (w["elementwise"], "float32")))
             log("hist", f"time {name} B={b} {chain}: kernel {k1:.4f} / {k2:.4f} ms, "
                 f"plain {p1:.4f} / {p2:.4f} ms")
         del logs, iy, g
@@ -526,7 +537,7 @@ def phase_palette_check(device) -> dict:
         # a compare and a select-add a pixel and slot; pixels and palettes
         # read once, the maps written once
         moved = nbytes(im, pa, got)
-        out["times"][b] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound(moved, 2 * got.numel() * 256, "int32"))
+        out["times"][b] = ((k1 + k2) / 2, (p1 + p2) / 2, *bound(moved, (2 * got.numel() * 256, "int32")))
         log("palette", f"time K5 {b} images: kernel {k1:.4f} / {k2:.4f} ms, "
             f"plain {p1:.4f} / {p2:.4f} ms")
     log("palette", f"{truncated} of {src.shape[0]} pairs have more than 256 colours (truncated)")
@@ -623,16 +634,20 @@ def phase_indexed_main_path(device, steps=8, update_steps=4) -> dict:
 
 
 def phase_timed_chunk(device, variant: str, compute_dtype: str, config_overrides: dict,
-                      steps: int) -> dict:
+                      steps: int, bf16_kernels=()) -> dict:
     """One chunk of `steps` steps through Trainer.fit after a 2-step
-    warm-up; returns ms/step, img/s and the peak device memory."""
+    warm-up; returns ms/step, img/s, the peak device memory and the
+    bfloat16 histogram backward's launches in warm-up and chunk, which must
+    reach one a step for each kernel named in `bf16_kernels`."""
     from palette_and_histo_gan_tpu_torch import config_for_variant
+    from palette_and_histo_gan_tpu_torch.ops import histogram_kernel
     from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
 
     config = config_for_variant(
         variant, compute_dtype=compute_dtype, temp_folder=TEMP_FOLDER, **config_overrides
     )
     trainer = Trainer(config, device, synthetic_datasets(config, device))
+    histogram_kernel.reset_launches()
     trainer.fit(steps=2, update_steps=2)  # warm-up: cuDNN plans, allocator
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -646,13 +661,19 @@ def phase_timed_chunk(device, variant: str, compute_dtype: str, config_overrides
         "ms_per_step": 1e3 * seconds / steps,
         "img_per_s": config.batch_size * steps / seconds,
         "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else float("nan"),
+        "bf16_launches": dict(histogram_kernel.bf16_launches),
     }
+    short = {k: out["bf16_launches"][k] for k in bf16_kernels if out["bf16_launches"][k] < 2 + steps}
+    if device.type == "cuda" and short:
+        raise AssertionError(f"the {compute_dtype} chunk launched the bfloat16 histogram backward "
+                             f"{short} times; needed {2 + steps} each")
     log(
         "timed",
         f"{variant} {compute_dtype} batch {config.batch_size}, {steps} steps in {seconds:.4f} s: "
         f"{out['ms_per_step']:.3f} ms/step, {out['img_per_s']:.1f} img/s, "
         f"peak {out['peak_gib']:.2f} GiB; last step G total "
-        f"{last['generator/total_loss']:.5f} D total {last['discriminator/total_loss']:.5f}",
+        f"{last['generator/total_loss']:.5f} D total {last['discriminator/total_loss']:.5f}; "
+        f"bfloat16 histogram backward launches {out['bf16_launches']}",
     )
     return out
 
@@ -682,6 +703,47 @@ def build_kernels() -> None:
     log("build", f"all built and loaded in {time.perf_counter() - t0:.2f} s")
 
 
+def tensor_core_report() -> dict:
+    """For each instantiation of the bfloat16 histogram backward
+    (hist_bwd_bf16<method>): ptxas' registers and spill bytes from the
+    build, and its count of HGMMA (wgmma) instructions in the built
+    library's SASS (cuobjdump). Fails if one has none."""
+    import re
+
+    from palette_and_histo_gan_tpu_torch.kernels import build
+    from palette_and_histo_gan_tpu_torch.ops import histogram_kernel
+
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", histogram_kernel.library()._name],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    hgmma, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+        elif name and "HGMMA" in line:
+            hgmma[name] = hgmma.get(name, 0) + 1
+    ptxas = {}
+    for block in build.build_reports.get("phg_histogram", "").split("Compiling entry function '")[1:]:
+        fn = block.split("'")[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        ptxas[fn] = (int(regs.group(1)) if regs else None,
+                     tuple(int(v) for v in spills.groups()) if spills else None)
+    out = {}
+    for fn in sorted(set(ptxas) | set(hgmma)):
+        if "hist_bwd_bf16" not in fn:
+            continue
+        method = "RBF" if "ILi1E" in fn else "inverse-quadratic"
+        regs, spills = ptxas.get(fn, (None, None))
+        out[method] = {"hgmma": hgmma.get(fn, 0), "registers": regs, "spill_bytes": spills}
+        log("build", f"hist_bwd_bf16<{method}>: {hgmma.get(fn, 0)} HGMMA in the SASS; ptxas: "
+            f"{regs} registers, spill stores/loads {spills} bytes (None: built before this process)")
+    if len(out) != 2 or not all(r["hgmma"] for r in out.values()):
+        raise AssertionError(f"the bfloat16 histogram backward lacks tensor-core instructions: {out}")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, times) -> dict:
     """One entry of the kernels line; `times` is (kernel ms, plain ms,
     bound ms, what bounds it). No single PyTorch call computes any of these
@@ -708,6 +770,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     build_kernels()
+    tensor_core_report()
     kern = phase_kernel_vs_plain(device)
     set_f32_parity_mode()
     hist = {"worst": phase_histogram_check(device), "times": phase_histogram_times(device)}
@@ -731,8 +794,9 @@ def main() -> int:
     f32 = phase_timed_chunk(device, "histogram", "float32", dict(batch_size=4), steps=40)
     bf16 = {
         label: phase_timed_chunk(device, "histogram", "bfloat16",
-                                 dict(batch_size=1024, **overrides), steps=10)
-        for label, (overrides, _) in HIST_CONFIGS.items()
+                                 dict(batch_size=1024, **overrides), steps=10,
+                                 bf16_kernels=[n for n in names if n in BF16_BACKWARDS])
+        for label, (overrides, names) in HIST_CONFIGS.items()
     }
     idx_f32 = phase_timed_chunk(device, "indexed", "float32", dict(batch_size=4), steps=40)
     idx_bf16 = phase_timed_chunk(device, "indexed", "bfloat16", dict(batch_size=1024), steps=10)
@@ -749,6 +813,10 @@ def main() -> int:
                      hist["times"][(name, 1024)])
         for name, (_, replaces, _) in HIST_KERNELS.items()
     ]
+    # the bfloat16 backward (tensor cores) runs in the b1024 bf16 chunks
+    for entry in kernels:
+        if entry["name"] in BF16_BACKWARDS:
+            entry["bf16_launches"] = sum(r["bf16_launches"][entry["name"]] for r in bf16.values())
     kernels.append(kernel_entry("K5", PAL_SOURCE, PAL_REPLACES, launches["K5"], 0,
                                 pal["times"][pal["n_images"]]))
     log("summary", f"{card}: b4 kernel/plain ms "

@@ -26,13 +26,16 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills of each kernel
 )
 # for a library whose float arithmetic must round op for op like its plain
 # PyTorch version: no multiply-add contraction anywhere
 NO_FMA = ("-fmad=false",)
 
-# seconds spent in nvcc by this process, per library name
+# seconds spent in nvcc by this process, and ptxas' report (-v), per
+# library name
 build_seconds: dict[str, float] = {}
+build_reports: dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -72,6 +75,7 @@ def load_library(name: str, sources: tuple[str, ...],
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         build_seconds[name] = time.perf_counter() - t0
+        build_reports[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(

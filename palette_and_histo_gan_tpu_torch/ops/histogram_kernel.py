@@ -2,8 +2,9 @@
 their plain PyTorch versions, and the per-pixel prologue and finish around
 them.
 
-Two kernels stand in for the five TPU kernels of the JAX package's three
-Pallas histogram designs (ROADMAP.md, Queue 2):
+A forward and a backward (one kernel for each chain) stand in for the five
+TPU kernels of the JAX package's three Pallas histogram designs
+(ROADMAP.md, Queue 2):
   * the forward, (B, 3, HW) logs + (B, HW) Iy -> (B, 3, 64, 64) unnormalized
     planes, for K3a (`histogram_pallas.py::_fwd_kernel`, float32 chain) and
     K3b (`histogram_pallas2.py::_fwd_kernel`, chain in the compute dtype);
@@ -11,12 +12,15 @@ Pallas histogram designs (ROADMAP.md, Queue 2):
     [numer_r, numer_g, numer_b, d_iy] summed over the channels, for K4a
     (`histogram_pallas.py::_bwd_kernel`), K4b (`histogram_pallas2.py::
     _bwd_kernel`) and K4c (`histogram_pallas3.py::_bwd3_kernel`), all with
-    K4c's algebra: m1 = Gc^T Ku, da = Gc Kv, dKv = Iy m1.
+    K4c's algebra: m1 = Gc^T Ku, da = Gc Kv, dKv = Iy m1. A float32 chain
+    launches `hist_bwd_f32` (products on the CUDA cores), a bfloat16 chain
+    `hist_bwd_bf16` (products on the tensor cores, wgmma).
 
 `histogram_forward` / `histogram_backward` send CUDA tensors to the kernel
 (it launches or raises) and CPU tensors to the plain version; `kernel`
 names the TPU kernel the call stands in for, and the CUDA launch counts
-under that name. The plain versions compute the kernels' algorithm with
+under that name (`bf16_launches` counts the bfloat16 backward's
+launches apart). The plain versions compute the kernels' algorithm with
 the same roundings: bin centres -3 + i * (6 / (size - 1)) in float32 (the
 TPU kernels' formula, one ulp off jnp.linspace at most bins), the chain in
 `chain` with every elementwise result rounded to it, products accumulated
@@ -24,6 +28,7 @@ in float32, and in a bfloat16 chain m1, da, each product before its
 reduction and each reduction rounded to bfloat16, as the TPU kernels'
 bfloat16 arithmetic rounds them. The plain version takes the exact
 reciprocal where the K4c kernel takes the approximate one (`approx`).
+`work` counts what a call of either kernel must do, for its bound.
 
 `FusedHistogram` is the autograd Function of the v1 and v2 entries
 (ops/histogram_pallas.py, ops/histogram_pallas2.py), which differ only
@@ -49,15 +54,18 @@ CHAINS = (torch.float32, torch.bfloat16)
 
 # launches in this process, by the TPU kernel each call stands in for. Only
 # a launch that returned no error counts; callers that want to count a run
-# set all to 0 first (reset_launches).
+# set all to 0 first (reset_launches). bf16_launches counts the backward
+# launches in a bfloat16 chain (the tensor-core kernel) once more, apart.
 launches = {k: 0 for k in FORWARD_KERNELS + BACKWARD_KERNELS}
+bf16_launches = {k: 0 for k in BACKWARD_KERNELS}
 
 _lib = None
 
 
 def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
+    for counts in (launches, bf16_launches):
+        for key in counts:
+            counts[key] = 0
 
 
 def library() -> ctypes.CDLL:
@@ -123,6 +131,35 @@ def _check_args(method, chain, kernel, kernels):
         raise ValueError(f"kernel must be one of {kernels}, got {kernel!r}")
 
 
+# per (pixel, bin, channel), as K4c's algebra writes it with the
+# inverse-quadratic kernel (the main path's): a kernel value is
+# x = diff - t, x * x, * inv_s, 1 + d and a reciprocal; the forward takes
+# two and Iy * Ku; the backward two, the two slope weights k * (k * x) and
+# a multiply and an add for each of s_y, s_u and s_v
+ELEMENTWISE_OPS = {"fwd": 2 * 5 + 1, "bwd": 2 * 5 + 2 * 2 + 3 * 2}
+
+
+def work(direction: str, batch: int, hw: int, size: int = KERNEL_BINS) -> dict:
+    """What one call of the forward ("fwd") or backward ("bwd") kernel must
+    do, from its shapes: `products`, the FLOP of its matrix products (the
+    forward's H = (Iy Ku)^T Kv, the backward's m1 and da; 2 a multiply-add),
+    `elementwise`, the operations of the kernel-value chain and the
+    per-pixel sums (ELEMENTWISE_OPS), and `bytes`, its float32 inputs read
+    once and its output written once."""
+    cells = batch * 3 * size * hw  # (image, channel, bin, pixel)
+    inputs = 4 * (batch * 3 * hw + batch * hw)  # logs and Iy
+    if direction == "fwd":
+        products = 2 * cells * size
+        moved = inputs + 4 * batch * 3 * size * size
+    elif direction == "bwd":
+        products = 2 * 2 * cells * size
+        moved = inputs + 4 * batch * 3 * size * size + 4 * batch * 4 * hw
+    else:
+        raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction!r}")
+    return {"products": products, "elementwise": ELEMENTWISE_OPS[direction] * cells,
+            "bytes": moved}
+
+
 # -------------------------------------------------------------- plain torch
 
 
@@ -156,9 +193,10 @@ def histogram_backward_plain(logs, iy, g, *, size, method, sigma, chain):
     """The backward kernel's function in PyTorch: logs (B, 3, HW), Iy
     (B, HW) and the cotangent g (B, 3, size, size), float32 -> rows
     (B, 4, HW) float32 = [numer_r, numer_g, numer_b, d_iy]. It takes the
-    exact reciprocal for the kernel's approximate one: rounded to bfloat16
-    the two agree but where the exact value lies within a float32 ulp of a
-    rounding tie."""
+    exact reciprocal where the kernels take the approximate one (K4c; in a
+    bfloat16 chain both K4b and K4c): of a bfloat16 value, rounded to
+    bfloat16, the two agree always (tests/test_torch_histogram_bwd_bf16.py);
+    in float32 within an ulp."""
     t = domain(size, logs.device).to(chain)[:, None]
     inv_s = chain_scalar(1.0 / sigma**2, chain)
     scale = -2.0 / sigma**2
@@ -253,6 +291,8 @@ def histogram_backward_cuda(logs, iy, g, *, size, method, sigma, chain, approx, 
     if rc != 0:
         raise RuntimeError(f"histogram backward kernel launch failed: cudaError {rc}")
     launches[kernel] += 1
+    if chain == torch.bfloat16:
+        bf16_launches[kernel] += 1
     return rows
 
 
