@@ -11,19 +11,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      fused histogram kernels (csrc/histogram.cu) and the palette index
      kernel (csrc/palette.cu) with nvcc for sm_90a from this checkout, the
      three nvcc processes at once; prints ptxas' registers and spills of
-     the bfloat16 histogram backward and counts its HGMMA (wgmma)
-     instructions in the library's SASS (cuobjdump): none fails.
+     the tensor-core kernels (the bfloat16 histogram forward and backward)
+     and of the float32 backward, and counts the HGMMA (wgmma) instructions
+     of the first two in the library's SASS (cuobjdump): a tensor-core
+     kernel with none, or with spills, fails.
   3. augment kernel vs plain: every input format x float32/bfloat16 output
      x normalize on/off, at B=4 and B=1024, on the same draws; float32
      within 5e-4 on the 0-255 scale, bfloat16 within one bfloat16 ulp
      beyond that float32 tolerance. Times both at the main path's shapes
      with CUDA events.
   4. histogram kernels vs plain: each of K3a, K3b (forward) and K4a, K4b,
-     K4c (backward) at B=4 and B=1024, 64x64 images, 64 bins, in every
-     chain its configuration allows, on the same seeded pixels and
-     cotangents; within HIST_TOL of the largest |plain value|. Times both
-     with CUDA events in the chain each regime runs: B=1024 with the
-     bfloat16 compute dtype (K3a/K4a keep their float32 chain), B=4 float32.
+     K4c (backward) at B=4, B=64 (where the backward's blocks own 512
+     pixels, between B=4's smallest and B=1024's 1,024) and B=1024 on 64x64
+     images, and at B=40 on images of 8,384 pixels (three launches of the
+     bfloat16 forward, a ninth block of the backward with 192 pixels),
+     64 bins, in every chain its configuration allows, on the same seeded
+     pixels and cotangents; within HIST_TOL of the largest |plain value|.
+     The float32 chain's branch-free reciprocal against __frcp_rn on every
+     positive normal float32 below 2^126: no mismatch. Times kernel and
+     plain version with CUDA events in the chain each regime runs: B=1024
+     with the bfloat16 compute dtype (K3a/K4a keep their float32 chain),
+     B=4 float32.
   5. parity: two full-width float32 histogram-variant steps on the card
      (kernel path) against the same steps on the CPU (plain path), from the
      same weights on the same batches, deterministic dropout and no
@@ -63,16 +71,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      4 (40 steps) and bfloat16 batch 1024 (10 steps); finite losses,
      ms/step, img/s, peak device memory. The histogram launch counts are
      set to 0 before each warm-up and read after its chunk: under
-     "pallas2" and histogram_bwd="pallas" the bfloat16 backward (the
-     tensor-core kernel, K4b and K4c) must run once a step, 12 times.
+     "pallas2" the bfloat16 forward (K3b) must run twice a step, 24 times,
+     under "pallas2" and histogram_bwd="pallas" the bfloat16 backward (K4b
+     and K4c) once a step, 12 times, and no tensor-core kernel otherwise.
 
 The kernels line gives each kernel's time at the main path's largest
 shape beside its bound: the largest of the bytes it must move (inputs read
 once, outputs written once) over 3.35 TB/s and its operations over the
 card's peak for their type (PEAK); for the histogram kernels the products
 at the chain's peak and the elementwise chain at float32's
-(ops/histogram_kernel.py::work). K4b and K4c also give the bfloat16
-backward's launches in the b1024 bf16 chunks (bf16_launches).
+(ops/histogram_kernel.py::work). K3b, K4b and K4c also give the
+tensor-core kernels' launches in the b1024 bf16 chunks (bf16_launches).
 """
 
 from __future__ import annotations
@@ -107,20 +116,24 @@ HIST_KERNELS = {
 # kernel vs plain, as a fraction of the largest |plain value|:
 #  * float32: the same elementwise chain op for op; the sums over 4096
 #    pixels (forward) and over 64 bins (backward) run in another order;
-#  * bfloat16: the products are exact in float32 on both sides, but a
-#    float32 sum in another order (for the backward, the tensor cores'
-#    accumulation) can put a bfloat16 rounding of m1, da or
-#    a per-pixel reduction on the other side of a tie, one bfloat16 ulp
-#    (2^-8 relative) of that value; the backward allows two such ulps of
-#    the largest row. The approximate reciprocal (plain: exact) rounds to
-#    the same bfloat16 (tests/test_torch_histogram_bwd_bf16.py).
+#  * bfloat16: the products are exact in float32 on both sides. The
+#    forward only sums them in float32 in another order (the tensor cores'
+#    accumulation, a partial sum a warpgroup). In the backward that order
+#    can put a bfloat16 rounding of m1, da or a per-pixel reduction on the
+#    other side of a tie, one bfloat16 ulp (2^-8 relative) of that value;
+#    it allows two such ulps of the largest row. The approximate
+#    reciprocal (plain: exact) rounds to the same bfloat16
+#    (tests/test_torch_histogram_bwd_bf16.py).
 HIST_TOL = {
     ("fwd", "float32"): 1e-5, ("bwd", "float32"): 1e-4,
     ("fwd", "bfloat16"): 1e-4, ("bwd", "bfloat16"): 8e-3,
 }
-# the backwards whose bfloat16 chain runs the tensor-core kernel
-# (hist_bwd_bf16); their b1024 bf16 chunks must launch it every step
-BF16_BACKWARDS = ("K4b", "K4c")
+# the kernels whose bfloat16 chain runs on the tensor cores (hist_fwd_bf16,
+# hist_bwd_bf16), and their launches a step: the b1024 bf16 chunks of
+# their configurations must count exactly those
+BF16_LAUNCHES_A_STEP = {"K3b": 2, "K4b": 1, "K4c": 1}
+# (batch, pixels an image) of the kernel-vs-plain checks
+HIST_CHECK_SHAPES = ((4, 4096), (64, 4096), (40, 8384), (1024, 4096))
 # the histogram configurations, as config_for_variant overrides, and the
 # kernels each one runs on the card
 HIST_CONFIGS = {
@@ -284,13 +297,13 @@ def phase_kernel_vs_plain(device) -> dict:
     return {"worst": worst, "times": times}
 
 
-def histogram_inputs(b: int, device, seed: int):
+def histogram_inputs(b: int, device, seed: int, hw: int = 4096):
     """Per-pixel logs (B, 3, HW) and Iy (B, HW) of seeded uint8 pixels, and
     a seeded (B, 3, 64, 64) cotangent, all float32 on `device`."""
     from palette_and_histo_gan_tpu_torch.ops import histogram_kernel as hk
 
     rng = np.random.default_rng(seed)
-    flat01 = torch.from_numpy(rng.integers(0, 256, (b, 4096, 3), dtype=np.uint8)).to(device).float() / 255.0
+    flat01 = torch.from_numpy(rng.integers(0, 256, (b, hw, 3), dtype=np.uint8)).to(device).float() / 255.0
     logs, iy = hk.logs_and_intensity(flat01)
     g = torch.from_numpy(rng.standard_normal((b, 3, 64, 64), dtype=np.float32) * 1e-3).to(device)
     return logs, iy, g
@@ -308,17 +321,28 @@ def histogram_call(name: str, chain: str, logs, iy, g, method="inverse-quadratic
         return hk.histogram_forward_cuda(logs, iy, kernel=name, **kw)
     if plain:
         return hk.histogram_backward_plain(logs, iy, g, **kw)
-    approx = name == "K4c" and chain == "bfloat16"
-    return hk.histogram_backward_cuda(logs, iy, g, approx=approx, kernel=name, **kw)
+    return hk.histogram_backward_cuda(logs, iy, g, kernel=name, **kw)
 
 
 def phase_histogram_check(device) -> dict:
     """Each histogram kernel against its plain version in every chain its
-    configuration allows, at B=4 and B=1024 (and the RBF kernel at B=4).
+    configuration allows, at HIST_CHECK_SHAPES (and the RBF kernel at B=4),
+    and the float32 chain's reciprocal against the correctly rounded one.
     Returns per kernel its worst absolute error."""
+    from palette_and_histo_gan_tpu_torch.ops import histogram_kernel as hk
+
+    mismatches = hk.reciprocal_mismatches(device)
+    log("hist", f"float32 chain's reciprocal vs __frcp_rn on every positive normal float32 below "
+        f"2^126: {mismatches} mismatches")
+    if mismatches:
+        raise AssertionError(f"the float32 chain's reciprocal is not correctly rounded: {mismatches}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     worst = {name: 0.0 for name in HIST_KERNELS}
-    for b in (4, 1024):
-        logs, iy, g = histogram_inputs(b, device, SEED + b)
+    for b, hw in HIST_CHECK_SHAPES:
+        log("hist", f"B={b}, {hw} pixels, {sms} SMs: a backward block owns "
+            + ", ".join(f"{hk.backward_block_pixels(b, hw, sms, getattr(torch, chain))} pixels ({chain})"
+                        for chain in ("float32", "bfloat16")))
+        logs, iy, g = histogram_inputs(b, device, SEED + b, hw)
         for name, (direction, _, chains) in HIST_KERNELS.items():
             for chain in chains:
                 for method in ("inverse-quadratic", "RBF") if b == 4 else ("inverse-quadratic",):
@@ -332,10 +356,10 @@ def phase_histogram_check(device) -> dict:
                     rel = err / float(ref.abs().max())
                     tol = HIST_TOL[(direction, chain)]
                     worst[name] = max(worst[name], err)
-                    log("hist", f"{name} B={b} {chain} {method}: max|kernel - plain| {err:.3e}, "
+                    log("hist", f"{name} B={b} HW={hw} {chain} {method}: max|kernel - plain| {err:.3e}, "
                         f"{rel:.3e} of max|plain| (tol {tol:g})")
                     if not (math.isfinite(rel) and rel <= tol):
-                        raise AssertionError(f"{name} disagrees with its plain version: B={b} {chain} {method}")
+                        raise AssertionError(f"{name} disagrees with its plain version: B={b} HW={hw} {chain} {method}")
             del got, ref
         del logs, iy, g
         torch.cuda.empty_cache()
@@ -637,8 +661,9 @@ def phase_timed_chunk(device, variant: str, compute_dtype: str, config_overrides
                       steps: int, bf16_kernels=()) -> dict:
     """One chunk of `steps` steps through Trainer.fit after a 2-step
     warm-up; returns ms/step, img/s, the peak device memory and the
-    bfloat16 histogram backward's launches in warm-up and chunk, which must
-    reach one a step for each kernel named in `bf16_kernels`."""
+    tensor-core histogram kernels' launches in warm-up and chunk, which
+    must be BF16_LAUNCHES_A_STEP's for each kernel named in `bf16_kernels`
+    and 0 for the others."""
     from palette_and_histo_gan_tpu_torch import config_for_variant
     from palette_and_histo_gan_tpu_torch.ops import histogram_kernel
     from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
@@ -663,17 +688,18 @@ def phase_timed_chunk(device, variant: str, compute_dtype: str, config_overrides
         "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else float("nan"),
         "bf16_launches": dict(histogram_kernel.bf16_launches),
     }
-    short = {k: out["bf16_launches"][k] for k in bf16_kernels if out["bf16_launches"][k] < 2 + steps}
-    if device.type == "cuda" and short:
-        raise AssertionError(f"the {compute_dtype} chunk launched the bfloat16 histogram backward "
-                             f"{short} times; needed {2 + steps} each")
+    need = {k: BF16_LAUNCHES_A_STEP[k] * (2 + steps) if k in bf16_kernels else 0
+            for k in out["bf16_launches"]}
+    if device.type == "cuda" and out["bf16_launches"] != need:
+        raise AssertionError(f"the {compute_dtype} chunk launched the tensor-core histogram kernels "
+                             f"{out['bf16_launches']} times; needed {need}")
     log(
         "timed",
         f"{variant} {compute_dtype} batch {config.batch_size}, {steps} steps in {seconds:.4f} s: "
         f"{out['ms_per_step']:.3f} ms/step, {out['img_per_s']:.1f} img/s, "
         f"peak {out['peak_gib']:.2f} GiB; last step G total "
         f"{last['generator/total_loss']:.5f} D total {last['discriminator/total_loss']:.5f}; "
-        f"bfloat16 histogram backward launches {out['bf16_launches']}",
+        f"tensor-core histogram kernel launches {out['bf16_launches']}",
     )
     return out
 
@@ -704,10 +730,11 @@ def build_kernels() -> None:
 
 
 def tensor_core_report() -> dict:
-    """For each instantiation of the bfloat16 histogram backward
-    (hist_bwd_bf16<method>): ptxas' registers and spill bytes from the
-    build, and its count of HGMMA (wgmma) instructions in the built
-    library's SASS (cuobjdump). Fails if one has none."""
+    """For each instantiation of the tensor-core kernels (hist_fwd_bf16 and
+    hist_bwd_bf16, a method each) and of the float32 backward
+    (hist_bwd_f32): ptxas' registers and spill bytes from the build, and
+    its count of HGMMA (wgmma) instructions in the built library's SASS
+    (cuobjdump). Fails if a tensor-core kernel has none, or spills."""
     import re
 
     from palette_and_histo_gan_tpu_torch.kernels import build
@@ -732,15 +759,19 @@ def tensor_core_report() -> dict:
                      tuple(int(v) for v in spills.groups()) if spills else None)
     out = {}
     for fn in sorted(set(ptxas) | set(hgmma)):
-        if "hist_bwd_bf16" not in fn:
+        kernel = next((k for k in ("hist_fwd_bf16", "hist_bwd_bf16", "hist_bwd_f32") if k in fn), None)
+        if kernel is None:
             continue
         method = "RBF" if "ILi1E" in fn else "inverse-quadratic"
         regs, spills = ptxas.get(fn, (None, None))
-        out[method] = {"hgmma": hgmma.get(fn, 0), "registers": regs, "spill_bytes": spills}
-        log("build", f"hist_bwd_bf16<{method}>: {hgmma.get(fn, 0)} HGMMA in the SASS; ptxas: "
+        out[(kernel, method)] = {"hgmma": hgmma.get(fn, 0), "registers": regs, "spill_bytes": spills}
+        log("build", f"{kernel}<{method}>: {hgmma.get(fn, 0)} HGMMA in the SASS; ptxas: "
             f"{regs} registers, spill stores/loads {spills} bytes (None: built before this process)")
-    if len(out) != 2 or not all(r["hgmma"] for r in out.values()):
-        raise AssertionError(f"the bfloat16 histogram backward lacks tensor-core instructions: {out}")
+    tensor_core = {k: r for k, r in out.items() if k[0] != "hist_bwd_f32"}
+    if len(out) != 6 or not all(r["hgmma"] for r in tensor_core.values()):
+        raise AssertionError(f"a tensor-core histogram kernel lacks tensor-core instructions: {out}")
+    if any(r["spill_bytes"] not in (None, (0, 0)) for r in tensor_core.values()):
+        raise AssertionError(f"a tensor-core histogram kernel spills registers: {out}")
     return out
 
 
@@ -795,7 +826,7 @@ def main() -> int:
     bf16 = {
         label: phase_timed_chunk(device, "histogram", "bfloat16",
                                  dict(batch_size=1024, **overrides), steps=10,
-                                 bf16_kernels=[n for n in names if n in BF16_BACKWARDS])
+                                 bf16_kernels=[n for n in names if n in BF16_LAUNCHES_A_STEP])
         for label, (overrides, names) in HIST_CONFIGS.items()
     }
     idx_f32 = phase_timed_chunk(device, "indexed", "float32", dict(batch_size=4), steps=40)
@@ -813,9 +844,9 @@ def main() -> int:
                      hist["times"][(name, 1024)])
         for name, (_, replaces, _) in HIST_KERNELS.items()
     ]
-    # the bfloat16 backward (tensor cores) runs in the b1024 bf16 chunks
+    # the tensor-core kernels run in the b1024 bf16 chunks
     for entry in kernels:
-        if entry["name"] in BF16_BACKWARDS:
+        if entry["name"] in BF16_LAUNCHES_A_STEP:
             entry["bf16_launches"] = sum(r["bf16_launches"][entry["name"]] for r in bf16.values())
     kernels.append(kernel_entry("K5", PAL_SOURCE, PAL_REPLACES, launches["K5"], 0,
                                 pal["times"][pal["n_images"]]))

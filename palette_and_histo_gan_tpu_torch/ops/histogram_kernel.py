@@ -7,27 +7,41 @@ TPU kernels of the JAX package's three Pallas histogram designs
 (ROADMAP.md, Queue 2):
   * the forward, (B, 3, HW) logs + (B, HW) Iy -> (B, 3, 64, 64) unnormalized
     planes, for K3a (`histogram_pallas.py::_fwd_kernel`, float32 chain) and
-    K3b (`histogram_pallas2.py::_fwd_kernel`, chain in the compute dtype);
+    K3b (`histogram_pallas2.py::_fwd_kernel`, chain in the compute dtype).
+    A float32 chain launches `hist_fwd_f32` (products as float32 FMAs on
+    the CUDA cores), a bfloat16 chain `hist_fwd_bf16`: H = (Iy Ku) Kv^T on
+    the tensor cores (wgmma m64n64k16, bins as M and N, pixels as K), Iy Ku
+    built in registers as the A fragments in packed bfloat16, Kv through
+    two shared-memory buffers a warpgroup, two warpgroups a block whose
+    float32 sums are added in a fixed order;
   * the backward, + the (B, 3, 64, 64) cotangent -> (B, 4, HW) rows
     [numer_r, numer_g, numer_b, d_iy] summed over the channels, for K4a
     (`histogram_pallas.py::_bwd_kernel`), K4b (`histogram_pallas2.py::
     _bwd_kernel`) and K4c (`histogram_pallas3.py::_bwd3_kernel`), all with
     K4c's algebra: m1 = Gc^T Ku, da = Gc Kv, dKv = Iy m1. A float32 chain
-    launches `hist_bwd_f32` (products on the CUDA cores), a bfloat16 chain
-    `hist_bwd_bf16` (products on the tensor cores, wgmma).
+    launches `hist_bwd_f32` (float32 FMAs; a block owns up to 1,024 pixels
+    of an image, reads each cotangent plane once and transposes it in
+    shared memory, 8 x 8 products a thread, the slope weights recomputed
+    in registers), a bfloat16 chain `hist_bwd_bf16` (products on the
+    tensor cores, wgmma). `backward_block_pixels` is the launch's rule for
+    the pixels a block owns.
 
 `histogram_forward` / `histogram_backward` send CUDA tensors to the kernel
 (it launches or raises) and CPU tensors to the plain version; `kernel`
 names the TPU kernel the call stands in for, and the CUDA launch counts
-under that name (`bf16_launches` counts the bfloat16 backward's
-launches apart). The plain versions compute the kernels' algorithm with
-the same roundings: bin centres -3 + i * (6 / (size - 1)) in float32 (the
-TPU kernels' formula, one ulp off jnp.linspace at most bins), the chain in
-`chain` with every elementwise result rounded to it, products accumulated
-in float32, and in a bfloat16 chain m1, da, each product before its
-reduction and each reduction rounded to bfloat16, as the TPU kernels'
-bfloat16 arithmetic rounds them. The plain version takes the exact
-reciprocal where the K4c kernel takes the approximate one (`approx`).
+under that name (`bf16_launches` counts the launches in a bfloat16 chain,
+the tensor-core kernels', once more, apart). The plain versions compute
+the kernels' algorithm with the same roundings: bin centres
+-3 + i * (6 / (size - 1)) in float32 (the TPU kernels' formula, one ulp off
+jnp.linspace at most bins), the chain in `chain` with every elementwise
+result rounded to it, products accumulated in float32, and in a bfloat16
+chain m1, da, each product before its reduction and each reduction rounded
+to bfloat16, as the TPU kernels' bfloat16 arithmetic rounds them. The
+reciprocal is the correctly rounded one everywhere: the float32 kernels
+take it branch-free (`reciprocal_mismatches` holds that against
+`__frcp_rn` on the card), and of a bfloat16 value the approximate one that
+K4c's TPU kernel takes rounds to the same bfloat16
+(tests/test_torch_histogram_bwd_bf16.py).
 `work` counts what a call of either kernel must do, for its bound.
 
 `FusedHistogram` is the autograd Function of the v1 and v2 entries
@@ -54,10 +68,11 @@ CHAINS = (torch.float32, torch.bfloat16)
 
 # launches in this process, by the TPU kernel each call stands in for. Only
 # a launch that returned no error counts; callers that want to count a run
-# set all to 0 first (reset_launches). bf16_launches counts the backward
-# launches in a bfloat16 chain (the tensor-core kernel) once more, apart.
+# set all to 0 first (reset_launches). bf16_launches counts the launches in
+# a bfloat16 chain (the tensor-core kernels hist_fwd_bf16 and
+# hist_bwd_bf16) once more, apart.
 launches = {k: 0 for k in FORWARD_KERNELS + BACKWARD_KERNELS}
-bf16_launches = {k: 0 for k in BACKWARD_KERNELS}
+bf16_launches = {k: 0 for k in FORWARD_KERNELS + BACKWARD_KERNELS}
 
 _lib = None
 
@@ -82,12 +97,16 @@ def library() -> ctypes.CDLL:
         )
         lib.phg_hist_fwd.restype = ctypes.c_int
         lib.phg_hist_bwd.argtypes = (
-            # bf16, approx, rbf; logs, iy, g, rows; batch, hw; inv_s, scale;
-            # stream
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+            # bf16, rbf; logs, iy, g, rows; batch, hw; inv_s, scale; stream
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
             + [ctypes.c_float] * 2 + [ctypes.c_void_p]
         )
         lib.phg_hist_bwd.restype = ctypes.c_int
+        lib.phg_rcp_mismatches.argtypes = (
+            # first bit pattern, count; counter; stream
+            [ctypes.c_uint] * 2 + [ctypes.c_void_p] * 2
+        )
+        lib.phg_rcp_mismatches.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -193,10 +212,9 @@ def histogram_backward_plain(logs, iy, g, *, size, method, sigma, chain):
     """The backward kernel's function in PyTorch: logs (B, 3, HW), Iy
     (B, HW) and the cotangent g (B, 3, size, size), float32 -> rows
     (B, 4, HW) float32 = [numer_r, numer_g, numer_b, d_iy]. It takes the
-    exact reciprocal where the kernels take the approximate one (K4c; in a
-    bfloat16 chain both K4b and K4c): of a bfloat16 value, rounded to
-    bfloat16, the two agree always (tests/test_torch_histogram_bwd_bf16.py);
-    in float32 within an ulp."""
+    exact reciprocal, as the float32 kernel does; the bfloat16 kernel takes
+    the approximate one, which of a bfloat16 value, rounded to bfloat16,
+    gives the same bits always (tests/test_torch_histogram_bwd_bf16.py)."""
     t = domain(size, logs.device).to(chain)[:, None]
     inv_s = chain_scalar(1.0 / sigma**2, chain)
     scale = -2.0 / sigma**2
@@ -247,6 +265,44 @@ def _check_cuda_inputs(what, logs, iy, extra=()):
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
+MAX_BLOCK_PIXELS = 1024
+# the fewest pixels a block of the backward takes: a 64-pixel tile in a
+# float32 chain, one for each of the two warpgroups in a bfloat16 chain
+MIN_BLOCK_PIXELS = {torch.float32: PIXEL_TILE, torch.bfloat16: 2 * PIXEL_TILE}
+
+
+def backward_block_pixels(batch: int, hw: int, sms: int, chain: torch.dtype) -> int:
+    """The pixels of one image that a block of the backward kernel owns, as
+    csrc/histogram.cu::backward_block_pixels chooses them: the most (one
+    load of the cotangent planes for more tiles), halved while the grid
+    (blocks an image x batch) would not give every one of the card's `sms`
+    multiprocessors two blocks."""
+    block_pixels = MAX_BLOCK_PIXELS
+    while (block_pixels > MIN_BLOCK_PIXELS[chain]
+           and batch * -(-hw // block_pixels) < 2 * sms):
+        block_pixels //= 2
+    return block_pixels
+
+
+def reciprocal_mismatches(device, first: int = 0x00800000, last: int = 0x7E800000) -> int:
+    """On `device`, the number of float32 bit patterns in [first, last)
+    (default: every positive normal value below 2^126, whose reciprocal is
+    normal too) on which the float32 chain's branch-free reciprocal differs
+    from the correctly rounded `__frcp_rn`. 0 on an H100."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"reciprocal_mismatches needs a CUDA device, got {device}")
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for start in range(first, last, 1 << 30):
+            rc = lib.phg_rcp_mismatches(start, min(1 << 30, last - start), count.data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(f"reciprocal check launch failed: cudaError {rc}")
+    return int(count)
+
+
 def histogram_forward_cuda(logs, iy, *, size, method, sigma, chain, kernel):
     """Launch the forward kernel; raises on anything it does not take and
     on a failed launch."""
@@ -267,10 +323,12 @@ def histogram_forward_cuda(logs, iy, *, size, method, sigma, chain, kernel):
     if rc != 0:
         raise RuntimeError(f"histogram forward kernel launch failed: cudaError {rc}")
     launches[kernel] += 1
+    if chain == torch.bfloat16:
+        bf16_launches[kernel] += 1
     return out
 
 
-def histogram_backward_cuda(logs, iy, g, *, size, method, sigma, chain, approx, kernel):
+def histogram_backward_cuda(logs, iy, g, *, size, method, sigma, chain, kernel):
     """Launch the backward kernel; raises on anything it does not take and
     on a failed launch."""
     _check_args(method, chain, kernel, BACKWARD_KERNELS)
@@ -283,7 +341,7 @@ def histogram_backward_cuda(logs, iy, g, *, size, method, sigma, chain, approx, 
     lib = library()
     with torch.cuda.device(logs.device):
         rc = lib.phg_hist_bwd(
-            int(chain == torch.bfloat16), int(approx), int(method == "RBF"),
+            int(chain == torch.bfloat16), int(method == "RBF"),
             logs.data_ptr(), iy.data_ptr(), g.data_ptr(), rows.data_ptr(), b, hw,
             chain_scalar(1.0 / sigma**2, chain), -2.0 / sigma**2,
             torch.cuda.current_stream(logs.device).cuda_stream,
@@ -312,13 +370,12 @@ def histogram_forward(logs, iy, *, size, method, sigma, chain, kernel):
     return histogram_forward_plain(logs, iy, size=size, method=method, sigma=sigma, chain=chain)
 
 
-def histogram_backward(logs, iy, g, *, size, method, sigma, chain, approx, kernel):
+def histogram_backward(logs, iy, g, *, size, method, sigma, chain, kernel):
     """The backward: the kernel for CUDA tensors, the plain version for CPU
     tensors. g (B, 3, size, size) float32."""
     if logs.is_cuda:
         return histogram_backward_cuda(
-            logs, iy, g, size=size, method=method, sigma=sigma, chain=chain,
-            approx=approx, kernel=kernel,
+            logs, iy, g, size=size, method=method, sigma=sigma, chain=chain, kernel=kernel
         )
     if logs.device.type != "cpu":
         raise ValueError(f"no histogram kernel for tensors on {logs.device}")
@@ -345,7 +402,7 @@ class FusedHistogram(torch.autograd.Function):
     def backward(ctx, g):
         flat01, logs, iy = ctx.saved_tensors
         rows = histogram_backward(
-            logs, iy, g.float().contiguous(), approx=False, kernel=ctx.bwd_kernel, **ctx.args
+            logs, iy, g.float().contiguous(), kernel=ctx.bwd_kernel, **ctx.args
         )
         return finish(rows, flat01, iy), None, None, None, None, None
 

@@ -4,8 +4,9 @@ Counterpart of palette_and_histo_gan_tpu/ops/histogram_pallas3.py and of
 `_histogram_core_pallas_bwd` in palette_and_histo_gan_tpu/ops/histogram.py
 (:438-463): the forward is the plain PyTorch `unnormalized_histograms`
 (as JAX runs its XLA forward), the backward kernel K4c
-(ops/histogram_kernel.py, csrc/histogram.cu) with the chain in `dtype`, an
-approximate reciprocal in bfloat16 and an exact one in float32.
+(ops/histogram_kernel.py, csrc/histogram.cu) with the chain in `dtype`
+(the TPU kernel's approximate reciprocal in bfloat16 rounds to the same
+bfloat16 as the exact one, so the port keeps no flag for it).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ def backward_unnormalized_pallas3(
     g_cm = g_unnorm.float().movedim(-1, 1).contiguous()  # (B, 3, size, size)
     rows = hk.histogram_backward(
         logs.float(), iy.float(), g_cm, size=size, method=method, sigma=sigma,
-        chain=dtype, approx=dtype == torch.bfloat16, kernel="K4c",
+        chain=dtype, kernel="K4c",
     )
     return hk.finish(rows, flat01, iy)
 

@@ -171,8 +171,7 @@ def _port_backward(kernel, x, g, method, dtype):
         ).numpy()
     logs, iy = hk.logs_and_intensity(flat01)
     rows = hk.histogram_backward(
-        logs, iy, g_cm, size=size, method=method, sigma=SIGMA, chain=dtype,
-        approx=False, kernel=kernel,
+        logs, iy, g_cm, size=size, method=method, sigma=SIGMA, chain=dtype, kernel=kernel
     )
     return hk.finish(rows, flat01, iy).numpy()
 
@@ -297,9 +296,7 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_bad_shapes():
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         hk.histogram_forward_cuda(logs, iy, kernel="K3a", **kw)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        hk.histogram_backward_cuda(
-            logs, iy, torch.zeros(2, 3, 64, 64), approx=False, kernel="K4c", **kw
-        )
+        hk.histogram_backward_cuda(logs, iy, torch.zeros(2, 3, 64, 64), kernel="K4c", **kw)
     with pytest.raises(ValueError, match="64 bins"):
         hk.histogram_forward_cuda(logs, iy, kernel="K3a", **dict(kw, size=16))
     with pytest.raises(ValueError, match="kernel must be one of"):
