@@ -11,11 +11,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      fused histogram kernels (csrc/histogram.cu) and the palette index
      kernel (csrc/palette.cu) with nvcc for sm_90a from this checkout, the
      three nvcc processes at once; prints ptxas' registers and spills of
-     the tensor-core kernels (the bfloat16 histogram forward and backward)
-     and of the float32 backward, and counts the HGMMA (wgmma) instructions
-     of the first two in the library's SASS (cuobjdump): a tensor-core
-     kernel with none, or with spills, fails.
-  3. augment kernel vs plain: every input format x float32/bfloat16 output
+     the tensor-core kernels (the histogram forwards in float32, 3xTF32,
+     and bfloat16, the bfloat16 backward) and of the float32 backward, and
+     counts the HGMMA (wgmma) instructions of the first three in the
+     library's SASS (cuobjdump): a tensor-core kernel with none, or with
+     spills, fails.
+  3. augment kernel vs plain: its branch-free divisions against IEEE
+     division (the normalize on every float32, the hue's reciprocal on
+     1..255): no mismatch; every input format x float32/bfloat16 output
      x normalize on/off, at B=4 and B=1024, on the same draws; float32
      within 5e-4 on the 0-255 scale, bfloat16 within one bfloat16 ulp
      beyond that float32 tolerance. Times both at the main path's shapes
@@ -28,7 +31,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      64 bins, in every chain its configuration allows, on the same seeded
      pixels and cotangents; within HIST_TOL of the largest |plain value|.
      The float32 chain's branch-free reciprocal against __frcp_rn on every
-     positive normal float32 below 2^126: no mismatch. Times kernel and
+     positive normal float32 below 2^126, and the float32 forward's integer
+     TF32 rounding (the CPU tests' too) against cvt.rna.tf32.f32 on every
+     finite float32: no mismatch. The float32
+     forward where it splits an image's pixels over blocks (B=4, B=40 x
+     8,384) gives the same bits in two launches. Times kernel and
      plain version with CUDA events in the chain each regime runs: B=1024
      with the bfloat16 compute dtype (K3a/K4a keep their float32 chain),
      B=4 float32.
@@ -65,9 +72,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      report, the counts read; the card-built datasets equal the CPU-built
      ones; finite losses.
  10. timed chunks, each after a 2-step warm-up, through Trainer.fit at
-     full width: histogram float32 batch 4 (40 steps) and bfloat16 batch
-     1024 (10 steps) under "xla"/"tri", bfloat16 batch 1024 under
-     "pallas", "pallas2" and histogram_bwd="pallas"; indexed float32 batch
+     full width: histogram float32 batch 4 (40 steps) under "xla"/"tri" and
+     under "pallas2" (the CLI's default on a card), bfloat16 batch 1024 (10
+     steps) under "xla"/"tri", "pallas", "pallas2" and
+     histogram_bwd="pallas"; indexed float32 batch
      4 (40 steps) and bfloat16 batch 1024 (10 steps); finite losses,
      ms/step, img/s, peak device memory. The histogram launch counts are
      set to 0 before each warm-up and read after its chunk: under
@@ -79,9 +87,13 @@ The kernels line gives each kernel's time at the main path's largest
 shape beside its bound: the largest of the bytes it must move (inputs read
 once, outputs written once) over 3.35 TB/s and its operations over the
 card's peak for their type (PEAK); for the histogram kernels the products
-at the chain's peak and the elementwise chain at float32's
-(ops/histogram_kernel.py::work). K3b, K4b and K4c also give the
-tensor-core kernels' launches in the b1024 bf16 chunks (bf16_launches).
+on the units the kernel takes them on (the float32 forward: three TF32
+passes; the float32 backward: float32 FMAs; a bfloat16 chain: bfloat16)
+and the elementwise chain at float32's (ops/histogram_kernel.py::work,
+histogram_bound). K3a also gives the bound with its products as float32
+FMAs (bound_f32_fma_ms), which no design on the CUDA cores can pass; K3b,
+K4b and K4c the tensor-core kernels' launches in the b1024 bf16 chunks
+(bf16_launches).
 """
 
 from __future__ import annotations
@@ -114,8 +126,11 @@ HIST_KERNELS = {
     "K4c": ("bwd", "palette_and_histo_gan_tpu/ops/histogram_pallas3.py:63", ("float32", "bfloat16")),
 }
 # kernel vs plain, as a fraction of the largest |plain value|:
-#  * float32: the same elementwise chain op for op; the sums over 4096
-#    pixels (forward) and over 64 bins (backward) run in another order;
+#  * float32: the same elementwise chain op for op. Forward: the kernel's
+#    3xTF32 products summed in blocks on the tensor cores against the
+#    plain version's float64 sum of the same float32 products (a float32
+#    sum in cuBLAS's sequential order is itself 1.3e-5 off it at 8,384
+#    pixels); backward: the sums over 64 bins run in another order;
 #  * bfloat16: the products are exact in float32 on both sides. The
 #    forward only sums them in float32 in another order (the tensor cores'
 #    accumulation, a partial sum a warpgroup). In the backward that order
@@ -151,9 +166,11 @@ TEMP_FOLDER = os.path.join("build", "chip_smoke")
 # An H100 SXM's peaks (NVIDIA's data sheet, dense): memory bytes/s and
 # operations/s by type. int32 on the CUDA cores: 132 SMs x 64 INT32 lanes x
 # 1.98 GHz (the Hopper white paper; half the float32 lanes behind the
-# float32 67 TFLOP/s). bfloat16 is the tensor cores' rate: the bfloat16
-# chain's products are bfloat16 x bfloat16 summed in float32.
-PEAK = {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12, "int32": 132 * 64 * 1.98e9}
+# float32 67 TFLOP/s). bfloat16 and tf32 are the tensor cores' rates: the
+# bfloat16 chain's products are bfloat16 x bfloat16 summed in float32, the
+# float32 forward's three TF32 products a pair of factors (3xTF32).
+PEAK = {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12, "tf32": 495e12,
+        "int32": 132 * 64 * 1.98e9}
 # the augmentation's float32 operations a pixel and image (hue rotation,
 # select, normalize; csrc/augment.cu)
 AUGMENT_OPS_PER_PIXEL = 40
@@ -166,6 +183,16 @@ def bound(nbytes: float, *ops: tuple[float, str]) -> tuple[float, str]:
     t_bytes = 1e3 * nbytes / PEAK["bytes"]
     t_ops = max(1e3 * n / PEAK[op_type] for n, op_type in ops)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def histogram_bound(w: dict, product_type: str | None = None) -> tuple[float, str]:
+    """bound() of a histogram kernel's work (ops/histogram_kernel.py::work):
+    its products, `passes` times, at the peak of `product_type` (default:
+    the units the kernel takes them on), its elementwise chain at
+    float32's, its bytes."""
+    product_type = product_type or w["product_type"]
+    passes = w["passes"] if product_type == w["product_type"] else 1
+    return bound(w["bytes"], (passes * w["products"], product_type), (w["elementwise"], "float32"))
 
 
 def nbytes(*tensors) -> int:
@@ -235,6 +262,11 @@ def phase_kernel_vs_plain(device) -> dict:
     scale) and its times."""
     from palette_and_histo_gan_tpu_torch.ops import augment, augment_kernel
 
+    mismatches = augment_kernel.divide_mismatches(device)
+    log("kernel", f"augment's branch-free divisions vs IEEE division (v / 127.5 - 1 on every "
+        f"float32, 1 / v on 1..255): {mismatches} mismatches")
+    if mismatches:
+        raise AssertionError(f"the augment kernel's divisions are not IEEE division's: {mismatches}")
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     worst = {"packed": 0.0, "rgba": 0.0}
@@ -324,6 +356,28 @@ def histogram_call(name: str, chain: str, logs, iy, g, method="inverse-quadratic
     return hk.histogram_backward_cuda(logs, iy, g, kernel=name, **kw)
 
 
+def float32_sum_error(logs, iy) -> float:
+    """How far torch.matmul in float32 (cuBLAS, summing in its own order)
+    lands from the plain forward's float64 sum of the same float32
+    products, as a fraction of the largest value: what a float32 sum in
+    one fixed order is itself off by (ops/histogram_kernel.py::
+    _forward_product), inverse-quadratic kernel."""
+    from palette_and_histo_gan_tpu_torch.ops import histogram_kernel as hk
+    from palette_and_histo_gan_tpu_torch.ops.histogram import CHANNEL_TRIPLES
+
+    t = hk.domain(64, logs.device)[:, None]
+    inv_s = hk.chain_scalar(1.0 / 0.02**2, torch.float32)
+    worst = 0.0
+    ref = hk.histogram_forward_plain(logs, iy, size=64, method="inverse-quadratic", sigma=0.02,
+                                     chain=torch.float32)
+    for ch, (c, p1, p2) in enumerate(CHANNEL_TRIPLES):
+        ku, _ = hk._kernel_values(logs[:, c] - logs[:, p1], t, "inverse-quadratic", inv_s)
+        kv, _ = hk._kernel_values(logs[:, c] - logs[:, p2], t, "inverse-quadratic", inv_s)
+        plane = torch.matmul(iy[:, None, :] * ku, kv.transpose(1, 2))
+        worst = max(worst, float((plane - ref[:, ch]).abs().max()))
+    return worst / float(ref.abs().max())
+
+
 def phase_histogram_check(device) -> dict:
     """Each histogram kernel against its plain version in every chain its
     configuration allows, at HIST_CHECK_SHAPES (and the RBF kernel at B=4),
@@ -336,13 +390,28 @@ def phase_histogram_check(device) -> dict:
         f"2^126: {mismatches} mismatches")
     if mismatches:
         raise AssertionError(f"the float32 chain's reciprocal is not correctly rounded: {mismatches}")
+    mismatches = hk.tf32_mismatches(device)
+    log("hist", f"float32 forward's TF32 rounding, (bits + 2^12) & ~(2^13 - 1), vs cvt.rna.tf32.f32 "
+        f"on every finite float32: {mismatches} mismatches")
+    if mismatches:
+        raise AssertionError(f"the float32 forward's TF32 rounding is not cvt.rna's: {mismatches}")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     worst = {name: 0.0 for name in HIST_KERNELS}
     for b, hw in HIST_CHECK_SHAPES:
-        log("hist", f"B={b}, {hw} pixels, {sms} SMs: a backward block owns "
+        fwd_pixels = hk.forward_block_pixels(b, hw, sms)
+        log("hist", f"B={b}, {hw} pixels, {sms} SMs: a float32 forward block owns {fwd_pixels} "
+            f"pixels ({-(-hw // fwd_pixels)} parts); a backward block owns "
             + ", ".join(f"{hk.backward_block_pixels(b, hw, sms, getattr(torch, chain))} pixels ({chain})"
                         for chain in ("float32", "bfloat16")))
         logs, iy, g = histogram_inputs(b, device, SEED + b, hw)
+        log("hist", f"B={b} HW={hw}: a float32 sum of the forward's products in cuBLAS's order "
+            f"is {float32_sum_error(logs, iy):.3e} of max|plain| off the plain version's float64 sum")
+        if fwd_pixels < hw:
+            first, again = (histogram_call("K3a", "float32", logs, iy, g) for _ in range(2))
+            torch.cuda.synchronize()
+            if not torch.equal(first, again):
+                raise AssertionError(f"the split float32 forward differs between launches: B={b} HW={hw}")
+            log("hist", f"K3a B={b} HW={hw}: two launches of the split forward give the same bits")
         for name, (direction, _, chains) in HIST_KERNELS.items():
             for chain in chains:
                 for method in ("inverse-quadratic", "RBF") if b == 4 else ("inverse-quadratic",):
@@ -387,11 +456,12 @@ def phase_histogram_times(device) -> dict:
             p1 = cuda_ms(plain, plain_iters)
             k1, k2 = cuda_ms(kern, iters), cuda_ms(kern, iters)
             p2 = cuda_ms(plain, plain_iters)
-            # the products at the chain's peak (bfloat16: the tensor
-            # cores), the elementwise chain at float32's, the bytes
-            w = hk.work(HIST_KERNELS[name][0], b, logs.shape[-1])
-            times[(name, b)] = ((k1 + k2) / 2, (p1 + p2) / 2,
-                                *bound(w["bytes"], (w["products"], chain), (w["elementwise"], "float32")))
+            # the products on the kernel's units, the elementwise chain at
+            # float32's, the bytes
+            w = hk.work(HIST_KERNELS[name][0], b, logs.shape[-1], chain=getattr(torch, chain))
+            times[(name, b)] = ((k1 + k2) / 2, (p1 + p2) / 2, *histogram_bound(w))
+            if name == "K3a":
+                times[("K3a fma", b)] = histogram_bound(w, "float32")
             log("hist", f"time {name} B={b} {chain}: kernel {k1:.4f} / {k2:.4f} ms, "
                 f"plain {p1:.4f} / {p2:.4f} ms")
         del logs, iy, g
@@ -729,9 +799,13 @@ def build_kernels() -> None:
     log("build", f"all built and loaded in {time.perf_counter() - t0:.2f} s")
 
 
+# the histogram kernels on the tensor cores
+TENSOR_CORE_KERNELS = ("hist_fwd_f32", "hist_fwd_bf16", "hist_bwd_bf16")
+
+
 def tensor_core_report() -> dict:
-    """For each instantiation of the tensor-core kernels (hist_fwd_bf16 and
-    hist_bwd_bf16, a method each) and of the float32 backward
+    """For each instantiation of the tensor-core kernels (hist_fwd_f32,
+    hist_fwd_bf16 and hist_bwd_bf16, a method each) and of the float32 backward
     (hist_bwd_f32): ptxas' registers and spill bytes from the build, and
     its count of HGMMA (wgmma) instructions in the built library's SASS
     (cuobjdump). Fails if a tensor-core kernel has none, or spills."""
@@ -759,7 +833,7 @@ def tensor_core_report() -> dict:
                      tuple(int(v) for v in spills.groups()) if spills else None)
     out = {}
     for fn in sorted(set(ptxas) | set(hgmma)):
-        kernel = next((k for k in ("hist_fwd_bf16", "hist_bwd_bf16", "hist_bwd_f32") if k in fn), None)
+        kernel = next((k for k in TENSOR_CORE_KERNELS + ("hist_bwd_f32",) if k in fn), None)
         if kernel is None:
             continue
         method = "RBF" if "ILi1E" in fn else "inverse-quadratic"
@@ -768,7 +842,7 @@ def tensor_core_report() -> dict:
         log("build", f"{kernel}<{method}>: {hgmma.get(fn, 0)} HGMMA in the SASS; ptxas: "
             f"{regs} registers, spill stores/loads {spills} bytes (None: built before this process)")
     tensor_core = {k: r for k, r in out.items() if k[0] != "hist_bwd_f32"}
-    if len(out) != 6 or not all(r["hgmma"] for r in tensor_core.values()):
+    if len(out) != 8 or not all(r["hgmma"] for r in tensor_core.values()):
         raise AssertionError(f"a tensor-core histogram kernel lacks tensor-core instructions: {out}")
     if any(r["spill_bytes"] not in (None, (0, 0)) for r in tensor_core.values()):
         raise AssertionError(f"a tensor-core histogram kernel spills registers: {out}")
@@ -823,6 +897,8 @@ def main() -> int:
     launches.update(phase_indexed_main_path(device))
 
     f32 = phase_timed_chunk(device, "histogram", "float32", dict(batch_size=4), steps=40)
+    f32_pallas2 = phase_timed_chunk(device, "histogram", "float32",
+                                    dict(batch_size=4, **HIST_CONFIGS["pallas2"][0]), steps=40)
     bf16 = {
         label: phase_timed_chunk(device, "histogram", "bfloat16",
                                  dict(batch_size=1024, **overrides), steps=10,
@@ -850,11 +926,18 @@ def main() -> int:
             entry["bf16_launches"] = sum(r["bf16_launches"][entry["name"]] for r in bf16.values())
     kernels.append(kernel_entry("K5", PAL_SOURCE, PAL_REPLACES, launches["K5"], 0,
                                 pal["times"][pal["n_images"]]))
+    # K3a beside the bound of its products as float32 FMAs
+    k3a = next(e for e in kernels if e["name"] == "K3a")
+    k3a["bound_f32_fma_ms"] = hist["times"][("K3a fma", 1024)][0]
     log("summary", f"{card}: b4 kernel/plain ms "
         + ", ".join(f"{e} {kern['times'][(e, 4)][0]:.4f}/{kern['times'][(e, 4)][1]:.4f}" for e in ("packed", "rgba"))
         + ", " + ", ".join(f"{n} {hist['times'][(n, 4)][0]:.4f}/{hist['times'][(n, 4)][1]:.4f}" for n in HIST_KERNELS)
         + f", K5 {pal['times'][4][0]:.4f}/{pal['times'][4][1]:.4f}"
-        + f"; histogram f32 b4 {f32['ms_per_step']:.3f} ms/step {f32['img_per_s']:.1f} img/s; bf16 b1024 "
+        + f"; K3a b1024 {k3a['ms']:.4f} ms: {100 * k3a['bound_ms'] / k3a['ms']:.1f}% of its 3xTF32 bound "
+        + f"{k3a['bound_ms']:.4f} ms, {100 * k3a['bound_f32_fma_ms'] / k3a['ms']:.1f}% of the float32-FMA "
+        + f"bound {k3a['bound_f32_fma_ms']:.4f} ms"
+        + f"; histogram f32 b4 {f32['ms_per_step']:.3f} ms/step {f32['img_per_s']:.1f} img/s "
+        + f"(pallas2 {f32_pallas2['ms_per_step']:.3f} ms/step {f32_pallas2['img_per_s']:.1f} img/s); bf16 b1024 "
         + ", ".join(f"{label} {r['ms_per_step']:.3f} ms/step {r['img_per_s']:.1f} img/s {r['peak_gib']:.2f} GiB"
                     for label, r in bf16.items())
         + f"; indexed f32 b4 {idx_f32['ms_per_step']:.3f} ms/step {idx_f32['img_per_s']:.1f} img/s"

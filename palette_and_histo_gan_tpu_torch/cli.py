@@ -9,13 +9,23 @@ device ("cpu" for the CPU). `--synthetic` trains on seeded sprites of the
 dataset's split sizes, for machines without the dataset: random uint8
 pixels for the RGBA variants, few-colour sprites for the indexed variant
 (data/loader.py::synthetic_indexed_arrays).
+
+`--histogram-impl` picks the histogram variant's loss path (config.py):
+"xla", the plain PyTorch chain; "pallas", the float32 kernels K3a/K4a;
+"pallas2", the kernels K3b/K4b in the compute dtype. Its default is
+"pallas2" on a CUDA device (the fastest on the card) and "xla" on the CPU,
+where every kernel path runs its plain version anyway.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch
+
 from .config import MODEL_VARIANTS, PALETTE_ORDERINGS, config_for_variant, set_f32_parity_mode
+
+HISTOGRAM_IMPLS = ("xla", "pallas", "pallas2")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,7 +60,18 @@ def build_parser() -> argparse.ArgumentParser:
         help="decoder widths override (default 512 512 256 128 64 32)",
     )
     p.add_argument("--callbacks", nargs="*", default=[], choices=["evaluate_l1"])
+    p.add_argument(
+        "--histogram-impl", choices=HISTOGRAM_IMPLS, default=None,
+        help="histogram loss path (default: 'pallas2' on a CUDA device, 'xla' on the CPU)",
+    )
     return p
+
+
+def histogram_impl(args: argparse.Namespace) -> str:
+    """The --histogram-impl flag, or its default for --device."""
+    if args.histogram_impl is not None:
+        return args.histogram_impl
+    return "pallas2" if torch.device(args.device).type == "cuda" else "xla"
 
 
 def main(argv=None) -> int:
@@ -58,6 +79,7 @@ def main(argv=None) -> int:
     overrides = dict(
         palette_ordering=args.palette_ordering, epochs=args.epochs,
         batch_size=args.batch_size, seed=args.seed, compute_dtype=args.compute_dtype,
+        histogram_impl=histogram_impl(args),
     )
     if args.lambda_segmentation is not None:
         overrides["lambda_segmentation"] = args.lambda_segmentation
@@ -91,7 +113,8 @@ def main(argv=None) -> int:
     update_steps = args.update_steps if args.update_steps is not None else config.update_steps
     print(
         f"Starting training for {config.model} ({config.architecture_name}) on "
-        f"{trainer.device}: {steps} steps, updating every {update_steps}..."
+        f"{trainer.device}: {steps} steps, updating every {update_steps}, "
+        f"histogram_impl {config.histogram_impl}..."
     )
     trainer.fit(steps, update_steps, callbacks=list(args.callbacks))
     return 0

@@ -16,12 +16,14 @@ under "xla" only, `histogram_bwd` "tri" (plain PyTorch) or "pallas"
 Knobs the port does not implement raise `NotImplementedError` in
 `check_supported` (see ROADMAP.md, "Queue 1"): `histogram_bwd` "dual",
 "tri2", "tri2b", "tri2c" under `histogram_impl="xla"`, XLA dot-structure
-alternatives of the "tri" backward measured on the TPU and not ported.
+alternatives of the "tri" backward measured on the TPU and not ported;
+`data_parallel="on"`, until data parallelism arrives (ROADMAP.md, Queue 1
+item 7). "auto" and "off" mean one device, as in JAX on one device.
 
 Knobs that only choose a TPU lowering of the same function, and that the
 port ignores: `transpose_impl`, `head_conv`, `infer_head_conv`,
 `d_input_split`, `dropout_prng`, `xla_compiler_options`, `donate_state`,
-`data_parallel`, `data_axis`. `augment_impl` "xla" asks for the plain
+`data_axis`. `augment_impl` "xla" asks for the plain
 augmentation, which the port runs only on CPU tensors; a CUDA batch always
 goes through the kernel, and `check_supported` rejects "xla" for a CUDA
 device.
@@ -280,6 +282,12 @@ def check_supported(config: Config, device: torch.device | str) -> None:
         raise NotImplementedError(
             f"histogram_bwd={config.histogram_bwd!r}: an XLA dot-structure "
             f"alternative the port does not run; it has {HISTOGRAM_BWDS}"
+        )
+    if config.data_parallel == "on":
+        raise NotImplementedError(
+            "data_parallel='on': the port trains on one device; data "
+            "parallelism arrives with ROADMAP.md Queue 1 item 7 (use 'auto' "
+            "or 'off')"
         )
     if device.type == "cuda" and config.augment_impl == "xla":
         raise ValueError(

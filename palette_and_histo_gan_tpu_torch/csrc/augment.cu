@@ -19,13 +19,24 @@
 // translation is a gather at a per-image offset. A pixel is 4 contiguous
 // bytes (or one float4), so each image read is one 4- or 16-byte load and
 // each write one 16-byte (float32) or 8-byte (bfloat16) store; neighbouring
-// threads touch neighbouring pixels. The TPU kernel's one-hot interleave
-// matmul and lane rolls exist only for the TPU's (8, 128) tiling and have
-// no counterpart here.
+// threads touch neighbouring pixels (ops/augment_kernel.py::thread_pixel
+// mirrors the map). What held it at half the rate a plain copy reaches was
+// not the memory (designs that put more bytes in flight, a block staging
+// its image in shared memory with 16-byte asynchronous copies or 16-byte
+// stores of two pixels a thread, were measured slower; PERF.md) but the
+// per-pixel chain: five IEEE divisions a pixel, each a range check, a
+// branch and a slow-path call that end a basic block. So the divisions run
+// branch-free with the same bits: the normalize's v / 127.5 as
+// div_127_5, and for integer channels (packed and uint8 input) the hue's
+// 1 / rng as rcp_rn_normal; phg_divide_mismatches holds both to IEEE
+// division on the card (every finite float32; rng = 1..255). The TPU
+// kernel's one-hot interleave matmul and lane rolls exist only for the
+// TPU's (8, 128) tiling and have no counterpart here.
 //
 // Numerics follow the TPU kernel's hue algebra exactly (one reciprocal,
 // saturation never formed, hue kept in the [0, 6) sextant domain), with
-// floor-mod as fmod plus a sign fix-up (jnp's `%`), IEEE division, and the
+// floor-mod as fmod plus a sign fix-up (jnp's `%`), IEEE division (or its
+// branch-free equivalents above), and the
 // build's -fmad=false so no multiply-add is contracted: the f32 result is
 // the plain PyTorch version's op for op, except at the normalize, where
 // PyTorch divides by a scalar through its reciprocal (one f32 ulp apart).
@@ -45,21 +56,49 @@ constexpr int kThreads = 256;
 enum InputFormat { kPackedU32 = 0, kRgbaU8 = 1, kRgbaF32 = 2 };
 
 __device__ __forceinline__ float floor_mod6(float x) {
-  // jnp.remainder: C fmod, then add the divisor when the signs differ
-  const float r = fmodf(x, 6.0f);
+  // jnp.remainder: C fmod, then add the divisor when the signs differ. On
+  // (-6, 12), where the hue chain's arguments lie, fmod is x or the exact
+  // x - 6 (Sterbenz), the same bits without fmodf's general loop
+  const float r = x > -6.0f && x < 12.0f ? (x >= 6.0f ? x - 6.0f : x) : fmodf(x, 6.0f);
   return r < 0.0f ? r + 6.0f : r;
+}
+
+// 1 / v rounded to nearest for 2^-126 < v < 2^126: the special-function
+// unit's reciprocal and one Newton step in two FMAs, without the range
+// check and the slow-path call of IEEE division, which end a basic block
+// at every use (phg_divide_mismatches holds it equal to 1.0f / v on 1..255)
+__device__ __forceinline__ float rcp_rn_normal(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return fmaf(r, -fmaf(v, r, -1.0f), r);
+}
+
+// v / 127.5 rounded to nearest, without a branch: the quotient through the
+// rounded reciprocal, and one step on its exact residual (two FMAs;
+// phg_divide_mismatches holds it equal to IEEE division on every finite
+// float32); for inf and NaN the product, as the division gives them
+__device__ __forceinline__ float div_127_5(float v) {
+  constexpr float kInv = 1.0f / 127.5f;
+  const float q0 = __fmul_rn(v, kInv);
+  const float q = fmaf(fmaf(-127.5f, q0, v), kInv, q0);
+  return isfinite(v) ? q : q0;
 }
 
 __device__ __forceinline__ float clamp01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
+// INTEGRAL: the channels are integers 0..255 (packed and uint8 input), so
+// rng is 1..255 where it is divided by and the reciprocal needs no range
+// check
+template <bool INTEGRAL>
 __device__ __forceinline__ void hue_rotate(float& r, float& g, float& b,
                                            float delta) {
   const float vmax = fmaxf(fmaxf(r, g), b);
   const float mn = fminf(fminf(r, g), b);
   const float rng = vmax - mn;
-  const float inv_rng = 1.0f / (rng == 0.0f ? 1.0f : rng);
+  const float den = rng == 0.0f ? 1.0f : rng;
+  const float inv_rng = INTEGRAL ? rcp_rn_normal(den) : 1.0f / den;
   float h;
   if (rng == 0.0f) {
     h = 0.0f;
@@ -137,13 +176,13 @@ augment_kernel(const void* __restrict__ src, const void* __restrict__ tgt,
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (inside) {
       v = load_pixel<FMT>(ins[k], in_idx);
-      if (kept) hue_rotate(v.x, v.y, v.z, d);
+      if (kept) hue_rotate<FMT != kRgbaF32>(v.x, v.y, v.z, d);
     }
     if (NORMALIZE) {
-      v.x = v.x / 127.5f - 1.0f;
-      v.y = v.y / 127.5f - 1.0f;
-      v.z = v.z / 127.5f - 1.0f;
-      v.w = v.w / 127.5f - 1.0f;
+      v.x = div_127_5(v.x) - 1.0f;
+      v.y = div_127_5(v.y) - 1.0f;
+      v.z = div_127_5(v.z) - 1.0f;
+      v.w = div_127_5(v.w) - 1.0f;
     }
     store_pixel(outs[k], out_idx, v);
   }
@@ -179,6 +218,27 @@ void launch_fmt(int out_bf16, bool normalize, const void* src, const void* tgt,
   }
 }
 
+// counts the float32 bit patterns first .. first + count - 1 whose
+// normalize v / 127.5 - 1 differs with div_127_5 from IEEE division, and
+// (in thread 0 of each launch) the v = 1..255 whose rcp_rn_normal differs
+// from 1.0f / v
+__global__ void divide_check(uint32_t first, uint32_t count, unsigned long long* mismatches) {
+  unsigned long long bad = 0;
+  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < count;
+       i += gridDim.x * blockDim.x) {
+    const float v = __uint_as_float(first + i);
+    const float want = v / 127.5f - 1.0f;
+    const float got = div_127_5(v) - 1.0f;
+    bad += __float_as_uint(got) != __float_as_uint(want) && !(isnan(got) && isnan(want));
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    for (int v = 1; v < 256; ++v) {
+      bad += __float_as_uint(rcp_rn_normal(float(v))) != __float_as_uint(1.0f / float(v));
+    }
+  }
+  if (bad) atomicAdd(mismatches, bad);
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes. Returns the cudaError_t of the launch
@@ -207,5 +267,15 @@ extern "C" int phg_augment(int fmt, int out_bf16, int normalize,
     default:
       return int(cudaErrorInvalidValue);
   }
+  return int(cudaGetLastError());
+}
+
+// Adds to *mismatches (a zeroed 64-bit counter on the device) the number of
+// float32 bit patterns first .. first + count - 1 on which the normalize's
+// division differs from IEEE division by 127.5, plus the integers 1..255
+// on which the hue's reciprocal differs from 1.0f / v (at every call).
+extern "C" int phg_divide_mismatches(unsigned first, unsigned count,
+                                     unsigned long long* mismatches, void* stream) {
+  divide_check<<<1024, 256, 0, static_cast<cudaStream_t>(stream)>>>(first, count, mismatches);
   return int(cudaGetLastError());
 }

@@ -13,6 +13,9 @@ Input formats, the same for source and target:
   * uint8 (B, 64, 64, 4);
   * float32 (B, 64, 64, 4) on the [0, 255] scale.
 Output: two (B, 64, 64, 4) tensors of `out_dtype` (float32 or bfloat16).
+`thread_pixel` and `source_pixel` mirror the kernel's map from threads to
+output pixels and from output pixels to the input pixel they gather
+(tests/test_torch_augment_tiles.py holds them to the plain version).
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ import torch
 from ..kernels import build
 
 FMT_PACKED, FMT_U8, FMT_F32 = 0, 1, 2
-PIXELS = 64 * 64
+SIDE = 64
+PIXELS = SIDE * SIDE
+THREADS = 256  # a block's threads
 
 # launches in this process, by the TPU kernel each input layout stands in
 # for: "packed" for _augment_kernel_packed (the train chunk's), "rgba"
@@ -52,8 +57,49 @@ def library() -> ctypes.CDLL:
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
         )
         lib.phg_augment.restype = ctypes.c_int
+        lib.phg_divide_mismatches.argtypes = (
+            # first bit pattern, count; counter; stream
+            [ctypes.c_uint] * 2 + [ctypes.c_void_p] * 2
+        )
+        lib.phg_divide_mismatches.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def divide_mismatches(device) -> int:
+    """On `device`, the number of float32 bit patterns (all 2^32; NaN
+    against NaN counts as equal) on which the kernel's branch-free
+    normalize, v / 127.5 - 1, differs from IEEE division's, plus, once for
+    each of the four launches, the integers 1..255 on which its hue
+    reciprocal differs from 1.0f / v. 0 on an H100."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"divide_mismatches needs a CUDA device, got {device}")
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for start in range(0, 1 << 32, 1 << 30):
+            rc = lib.phg_divide_mismatches(start, 1 << 30, count.data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(f"division check launch failed: cudaError {rc}")
+    return int(count)
+
+
+def thread_pixel(block: int, thread: int) -> int:
+    """The output pixel, of both images of its block's pair, that thread
+    `thread` of block `block` (grid (PIXELS / THREADS, B)) writes."""
+    return block * THREADS + thread
+
+
+def source_pixel(p: int, sy: int, sx: int, keep: int) -> int:
+    """The input pixel that output pixel `p` gathers under the pair's
+    draws, or -1 where it is zero fill: (y - sy, x - sx) of a kept pair,
+    (y, x) of a pair left as it is."""
+    y, x = divmod(p, SIDE)
+    if keep:
+        y, x = y - sy, x - sx
+    return y * SIDE + x if 0 <= y < SIDE and 0 <= x < SIDE else -1
 
 
 def input_format(x: torch.Tensor) -> int:

@@ -8,12 +8,18 @@ TPU kernels of the JAX package's three Pallas histogram designs
   * the forward, (B, 3, HW) logs + (B, HW) Iy -> (B, 3, 64, 64) unnormalized
     planes, for K3a (`histogram_pallas.py::_fwd_kernel`, float32 chain) and
     K3b (`histogram_pallas2.py::_fwd_kernel`, chain in the compute dtype).
-    A float32 chain launches `hist_fwd_f32` (products as float32 FMAs on
-    the CUDA cores), a bfloat16 chain `hist_fwd_bf16`: H = (Iy Ku) Kv^T on
-    the tensor cores (wgmma m64n64k16, bins as M and N, pixels as K), Iy Ku
-    built in registers as the A fragments in packed bfloat16, Kv through
-    two shared-memory buffers a warpgroup, two warpgroups a block whose
-    float32 sums are added in a fixed order;
+    Both chains take H = (Iy Ku) Kv^T on the tensor cores (wgmma, bins as
+    M and N, pixels as K), Iy Ku built in registers as the A fragments, Kv
+    through two shared-memory buffers a warpgroup, two warpgroups a block
+    whose float32 sums are added in a fixed order. A float32 chain
+    launches `hist_fwd_f32`: 3xTF32 (each float32 factor split into TF32
+    parts hi and lo, lo_A hi_B + hi_A lo_B + hi_A hi_B on wgmma m64n64k8
+    tf32), float32-level accuracy, so not subject to
+    `config.set_f32_parity_mode`; for small batches an image's pixels
+    split over several blocks (`forward_block_pixels`), whose partial
+    planes, in a scratch tensor this wrapper allocates, a second pass adds
+    in index order. A bfloat16 chain launches `hist_fwd_bf16` (m64n64k16,
+    Iy Ku in packed bfloat16);
   * the backward, + the (B, 3, 64, 64) cotangent -> (B, 4, HW) rows
     [numer_r, numer_g, numer_b, d_iy] summed over the channels, for K4a
     (`histogram_pallas.py::_bwd_kernel`), K4b (`histogram_pallas2.py::
@@ -34,7 +40,8 @@ the tensor-core kernels', once more, apart). The plain versions compute
 the kernels' algorithm with the same roundings: bin centres
 -3 + i * (6 / (size - 1)) in float32 (the TPU kernels' formula, one ulp off
 jnp.linspace at most bins), the chain in `chain` with every elementwise
-result rounded to it, products accumulated in float32, and in a bfloat16
+result rounded to it, products accumulated in float32 (the float32
+forward's in float64, rounded once: see `_forward_product`), and in a bfloat16
 chain m1, da, each product before its reduction and each reduction rounded
 to bfloat16, as the TPU kernels' bfloat16 arithmetic rounds them. The
 reciprocal is the correctly rounded one everywhere: the float32 kernels
@@ -91,9 +98,10 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load_library("phg_histogram", ("histogram.cu",))
         lib.phg_hist_fwd.argtypes = (
-            # bf16, rbf; logs, iy, out; batch, hw; inv_s; stream
-            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-            + [ctypes.c_float, ctypes.c_void_p]
+            # bf16, rbf; logs, iy, out, scratch; scratch floats; batch, hw;
+            # inv_s; stream
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_long]
+            + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.phg_hist_fwd.restype = ctypes.c_int
         lib.phg_hist_bwd.argtypes = (
@@ -107,6 +115,8 @@ def library() -> ctypes.CDLL:
             [ctypes.c_uint] * 2 + [ctypes.c_void_p] * 2
         )
         lib.phg_rcp_mismatches.restype = ctypes.c_int
+        lib.phg_tf32_mismatches.argtypes = lib.phg_rcp_mismatches.argtypes
+        lib.phg_tf32_mismatches.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -158,13 +168,17 @@ def _check_args(method, chain, kernel, kernels):
 ELEMENTWISE_OPS = {"fwd": 2 * 5 + 1, "bwd": 2 * 5 + 2 * 2 + 3 * 2}
 
 
-def work(direction: str, batch: int, hw: int, size: int = KERNEL_BINS) -> dict:
-    """What one call of the forward ("fwd") or backward ("bwd") kernel must
-    do, from its shapes: `products`, the FLOP of its matrix products (the
-    forward's H = (Iy Ku)^T Kv, the backward's m1 and da; 2 a multiply-add),
-    `elementwise`, the operations of the kernel-value chain and the
-    per-pixel sums (ELEMENTWISE_OPS), and `bytes`, its float32 inputs read
-    once and its output written once."""
+def work(direction: str, batch: int, hw: int, size: int = KERNEL_BINS,
+         chain: torch.dtype = torch.float32) -> dict:
+    """What one call of the forward ("fwd") or backward ("bwd") kernel in
+    `chain` must do, from its shapes: `products`, the FLOP of its matrix
+    products (the forward's H = (Iy Ku)^T Kv, the backward's m1 and da; 2 a
+    multiply-add), taken `passes` times on the units `product_type` names
+    (the float32 forward: three TF32 products, 3xTF32; the float32
+    backward: float32 FMAs; a bfloat16 chain: the tensor cores in
+    bfloat16), `elementwise`, the operations of the kernel-value chain and
+    the per-pixel sums (ELEMENTWISE_OPS), and `bytes`, its float32 inputs
+    read once and its output written once."""
     cells = batch * 3 * size * hw  # (image, channel, bin, pixel)
     inputs = 4 * (batch * 3 * hw + batch * hw)  # logs and Iy
     if direction == "fwd":
@@ -175,8 +189,14 @@ def work(direction: str, batch: int, hw: int, size: int = KERNEL_BINS) -> dict:
         moved = inputs + 4 * batch * 3 * size * size + 4 * batch * 4 * hw
     else:
         raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction!r}")
-    return {"products": products, "elementwise": ELEMENTWISE_OPS[direction] * cells,
-            "bytes": moved}
+    if chain == torch.bfloat16:
+        passes, product_type = 1, "bfloat16"
+    elif direction == "fwd":
+        passes, product_type = 3, "tf32"
+    else:
+        passes, product_type = 1, "float32"
+    return {"products": products, "passes": passes, "product_type": product_type,
+            "elementwise": ELEMENTWISE_OPS[direction] * cells, "bytes": moved}
 
 
 # -------------------------------------------------------------- plain torch
@@ -194,6 +214,20 @@ def _kernel_values(diff, t, method, inv_s):
     return k, k * (k * x)
 
 
+def _forward_product(a, b):
+    """a @ b, (B, size, HW) x (B, HW, size), with a float32 result. In a
+    float32 chain the float32 products (exact in float64) are summed in
+    float64 and rounded once: the sum the TPU kernel's Precision.HIGHEST
+    product and the card's 3xTF32 kernel approximate. A float32 sum in one
+    fixed order is itself off that sum by up to ~1.3e-5 of the largest
+    value over 8,384 pixels (cuBLAS's sequential order on an H100), the
+    kernel by < 1e-6 (PERF.md). A bfloat16 chain's products are
+    exact in float32 and summed there, as the tensor cores sum them."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a.double(), b.double()).float()
+    return matmul_f32(a, b)
+
+
 def histogram_forward_plain(logs, iy, *, size, method, sigma, chain):
     """The forward kernel's function in PyTorch: logs (B, 3, HW) and Iy
     (B, HW) float32 -> (B, 3, size, size) float32."""
@@ -204,7 +238,7 @@ def histogram_forward_plain(logs, iy, *, size, method, sigma, chain):
     for c, p1, p2 in CHANNEL_TRIPLES:
         ku, _ = _kernel_values((logs[:, c] - logs[:, p1]).to(chain), t, method, inv_s)
         kv, _ = _kernel_values((logs[:, c] - logs[:, p2]).to(chain), t, method, inv_s)
-        planes.append(matmul_f32(iy_c * ku, kv.transpose(1, 2)))
+        planes.append(_forward_product(iy_c * ku, kv.transpose(1, 2)))
     return torch.stack(planes, dim=1)
 
 
@@ -261,8 +295,8 @@ def _check_cuda_inputs(what, logs, iy, extra=()):
                 f"{what}: {name} must be float32 {shape} on {logs.device}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
             )
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
 
 
 MAX_BLOCK_PIXELS = 1024
@@ -284,23 +318,69 @@ def backward_block_pixels(batch: int, hw: int, sms: int, chain: torch.dtype) -> 
     return block_pixels
 
 
+# the fewest and the most pixels a block of the float32 forward takes (the
+# most: what its shared memory stages)
+MIN_FORWARD_BLOCK_PIXELS = 128
+MAX_FORWARD_BLOCK_PIXELS = 4096
+
+
+def forward_block_pixels(batch: int, hw: int, sms: int) -> int:
+    """The pixels of one image that a block of the float32 forward owns, as
+    csrc/histogram.cu::forward_block_pixels chooses them: the whole image up
+    to MAX_FORWARD_BLOCK_PIXELS, halved (rounded up to a multiple of 64)
+    while the grid (3 x batch x parts) would not give every one of the
+    card's `sms` multiprocessors two blocks, down to
+    MIN_FORWARD_BLOCK_PIXELS. The last part of an image holds what is
+    left."""
+    block_pixels = min(hw, MAX_FORWARD_BLOCK_PIXELS)
+    while (block_pixels > MIN_FORWARD_BLOCK_PIXELS
+           and 3 * batch * -(-hw // block_pixels) < 2 * sms):
+        block_pixels = -(-(block_pixels // 2) // PIXEL_TILE) * PIXEL_TILE
+    return block_pixels
+
+
+_multiprocessor_counts: dict[int, int] = {}
+
+
+def _multiprocessors(device: torch.device) -> int:
+    """The card's SM count, read once a device (the launch rules' input)."""
+    if device.index not in _multiprocessor_counts:
+        _multiprocessor_counts[device.index] = (
+            torch.cuda.get_device_properties(device).multi_processor_count)
+    return _multiprocessor_counts[device.index]
+
+
+def _count_mismatches(entry: str, device, first: int, last: int) -> int:
+    """Run the bit-pattern check `entry` of the library over [first, last)
+    on `device`; returns its count."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{entry} needs a CUDA device, got {device}")
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    check = getattr(library(), entry)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for start in range(first, last, 1 << 30):
+            rc = check(start, min(1 << 30, last - start), count.data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+    return int(count)
+
+
 def reciprocal_mismatches(device, first: int = 0x00800000, last: int = 0x7E800000) -> int:
     """On `device`, the number of float32 bit patterns in [first, last)
     (default: every positive normal value below 2^126, whose reciprocal is
     normal too) on which the float32 chain's branch-free reciprocal differs
     from the correctly rounded `__frcp_rn`. 0 on an H100."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"reciprocal_mismatches needs a CUDA device, got {device}")
-    count = torch.zeros(1, dtype=torch.int64, device=device)
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        for start in range(first, last, 1 << 30):
-            rc = lib.phg_rcp_mismatches(start, min(1 << 30, last - start), count.data_ptr(), stream)
-            if rc != 0:
-                raise RuntimeError(f"reciprocal check launch failed: cudaError {rc}")
-    return int(count)
+    return _count_mismatches("phg_rcp_mismatches", device, first, last)
+
+
+def tf32_mismatches(device, first: int = 0, last: int = 1 << 32) -> int:
+    """On `device`, the number of finite float32 bit patterns in [first,
+    last) (default: all) on which `cvt.rna.tf32.f32` differs from the
+    float32 forward's TF32 rounding, the integer (bits + 2^12) &
+    ~(2^13 - 1), which the CPU tests emulate too. 0 on an H100."""
+    return _count_mismatches("phg_tf32_mismatches", device, first, last)
 
 
 def histogram_forward_cuda(logs, iy, *, size, method, sigma, chain, kernel):
@@ -312,12 +392,18 @@ def histogram_forward_cuda(logs, iy, *, size, method, sigma, chain, kernel):
     _check_cuda_inputs("histogram_forward_cuda", logs, iy)
     b, _, hw = logs.shape
     out = torch.empty((b, 3, size, size), dtype=torch.float32, device=logs.device)
+    scratch = None  # the float32 forward's partial planes, when it splits
+    if chain == torch.float32:
+        parts = -(-hw // forward_block_pixels(b, hw, _multiprocessors(logs.device)))
+        if parts > 1:
+            scratch = torch.empty((parts,) + out.shape, dtype=torch.float32, device=logs.device)
     lib = library()
     with torch.cuda.device(logs.device):
         rc = lib.phg_hist_fwd(
             int(chain == torch.bfloat16), int(method == "RBF"),
-            logs.data_ptr(), iy.data_ptr(), out.data_ptr(), b, hw,
-            chain_scalar(1.0 / sigma**2, chain),
+            logs.data_ptr(), iy.data_ptr(), out.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), 0 if scratch is None else scratch.numel(),
+            b, hw, chain_scalar(1.0 / sigma**2, chain),
             torch.cuda.current_stream(logs.device).cuda_stream,
         )
     if rc != 0:

@@ -75,6 +75,11 @@ def make_optimizer(config: Config, module: nn.Module) -> KerasAdam:
     )
 
 
+# seed offsets of the state's augmentation and dropout generators: past the
+# evaluations' seed + 1, + 2 and + 3
+TRAIN_SEED_OFFSETS = (4, 5)
+
+
 @dataclasses.dataclass
 class TrainState:
     step: int
@@ -100,13 +105,17 @@ def build_models(config: Config, device, seed: int) -> tuple[nn.Module, nn.Modul
 
 def create_train_state(config: Config, device, seed: int) -> TrainState:
     """Networks initialized from `seed`; augmentation and dropout generators
-    seeded from seed + 1 and seed + 2."""
+    seeded from seed + 4 and seed + 5 (TRAIN_SEED_OFFSETS). The evaluations
+    seed their own generators with seed + 1, + 2 and + 3, as the JAX
+    Trainer does (its L1 report takes seed + 2), so that no evaluation
+    replays the masks or draws of training."""
     device = torch.device(device)
     g, d = build_models(config, device, seed)
+    aug_offset, dropout_offset = TRAIN_SEED_OFFSETS
     aug = torch.Generator(device=device)
-    aug.manual_seed(seed + 1)
+    aug.manual_seed(seed + aug_offset)
     drop = torch.Generator(device=device)
-    drop.manual_seed(seed + 2)
+    drop.manual_seed(seed + dropout_offset)
     return TrainState(
         step=0,
         generator=g,

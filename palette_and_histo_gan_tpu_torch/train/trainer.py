@@ -168,6 +168,8 @@ class Trainer:
             num_images = sum(self.config.test_sizes)
         values = eval_metrics.report_l1(
             self.config, self.state.generator, self.train_ds, self.test_ds, num_images,
+            # the JAX Trainer's L1 seed; training's generators take seed
+            # + 4 and + 5 (train/state.py::create_train_state)
             self.config.seed + 2,
         )
         if self.writer is not None and step is not None:
