@@ -82,6 +82,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      "pallas2" the bfloat16 forward (K3b) must run twice a step, 24 times,
      under "pallas2" and histogram_bwd="pallas" the bfloat16 backward (K4b
      and K4c) once a step, 12 times, and no tensor-core kernel otherwise.
+ 11. lifecycle, under deterministic cuDNN (phase_lifecycle): a full-width
+     histogram "pallas2" b4 float32 run of 10 steps against 6 steps, a
+     fresh Trainer restored from their checkpoint and 4 more, bit for bit,
+     the kernels' launches counted around both; its previews, patch-map
+     strips, weight file and 44 image dumps written and decoded; an
+     indexed run with its K5 dataset build and 8 dumps; a b1024 bfloat16
+     fit with its previews and checkpoint, timed by phase.
 
 The kernels line gives each kernel's time at the main path's largest
 shape beside its bound: the largest of the bytes it must move (inputs read
@@ -93,7 +100,8 @@ and the elementwise chain at float32's (ops/histogram_kernel.py::work,
 histogram_bound). K3a also gives the bound with its products as float32
 FMAs (bound_f32_fma_ms), which no design on the CUDA cores can pass; K3b,
 K4b and K4c the tensor-core kernels' launches in the b1024 bf16 chunks
-(bf16_launches).
+(bf16_launches); K1, K3b, K4b and K5 their launches in the lifecycle
+phase (lifecycle_launches).
 """
 
 from __future__ import annotations
@@ -774,6 +782,205 @@ def phase_timed_chunk(device, variant: str, compute_dtype: str, config_overrides
     return out
 
 
+# -------------------------------------------------------------- lifecycle
+
+
+def glob_png(folder: str, pattern: str) -> list[str]:
+    import glob
+
+    return sorted(glob.glob(os.path.join(folder, pattern)))
+
+
+def decode_written(paths, shape: tuple, what: str) -> None:
+    """Decode each PNG through the port's native decoder at `shape` (H, W):
+    opaque RGB, or the run fails."""
+    from palette_and_histo_gan_tpu_torch.native import png_io
+
+    if not paths:
+        raise AssertionError(f"no {what} written")
+    for path in paths:
+        img = png_io.decode_png_rgba(path, *shape)
+        if img is None or (img[..., 3] != 255).any():
+            raise AssertionError(f"{what} {path} does not decode as a {shape} RGB PNG")
+
+
+def state_mismatches(a, b) -> list[str]:
+    """Keys of two TrainState.state_dict()s whose values are not bit-equal."""
+    from palette_and_histo_gan_tpu_torch.models.convert import flatten_tree
+
+    fa, fb = flatten_tree(a.state_dict()), flatten_tree(b.state_dict())
+    if fa.keys() != fb.keys():
+        return sorted(fa.keys() ^ fb.keys())
+    return [k for k, v in fa.items()
+            if not (torch.equal(v.cpu(), fb[k].cpu()) if isinstance(v, torch.Tensor) else v == fb[k])]
+
+
+def lifecycle_trainer(device, temp_folder: str, variant: str = "histogram", **overrides):
+    from palette_and_histo_gan_tpu_torch import config_for_variant
+    from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
+
+    config = config_for_variant(variant, temp_folder=temp_folder, **overrides)
+    return Trainer(config, device, synthetic_datasets(config, device))
+
+
+def phase_lifecycle(device, card: str) -> dict:
+    """The Trainer's lifecycle at full width on the card, under float32
+    parity and deterministic cuDNN:
+      1. histogram "pallas2", batch 4, float32, augmentation on (K1,
+         hist_fwd_f32 and hist_bwd_f32 as K3b / K4b): (a) fit(10,
+         update_steps=2) with the L1 report and the patch maps; (b)
+         fit(6), a fresh Trainer restored from step 6, fit(4,
+         starting_step=6). (b) equals (a) bit for bit; both ran the
+         kernels; one checkpoint, of step 10; every preview grid and
+         patch-map strip written and decodes; the generator's weight
+         file loads back equal in a fresh Trainer; the test split's 44
+         image dumps decode;
+      2. indexed, batch 4, float32: the datasets built by K5, fit(2) with
+         the patch maps, 8 image dumps through the palette decode;
+      3. histogram "pallas2" at batch 1024 bfloat16: after a 2-step
+         warm-up, fit(20, update_steps=10) with its previews and one
+         checkpoint; phase_seconds, the checkpoint's bytes and the time
+         AsyncSaver.save held the loop.
+    Returns each run's launch counts and the timings."""
+    import shutil
+
+    from palette_and_histo_gan_tpu_torch import set_deterministic_mode
+    from palette_and_histo_gan_tpu_torch.data import loader
+    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, histogram_kernel, palette_kernel
+    from palette_and_histo_gan_tpu_torch.train import checkpoint as ckpt
+    from palette_and_histo_gan_tpu_torch.utils import visualization as viz
+
+    set_deterministic_mode()
+    root = os.path.join(TEMP_FOLDER, "lifecycle")
+    shutil.rmtree(root, ignore_errors=True)
+    counters = (augment_kernel, histogram_kernel, palette_kernel)
+    hist = dict(batch_size=4, histogram_impl="pallas2")
+    tile = 64 * viz.SCALE + viz.GUTTER
+    grid_shape = (viz.GUTTER + 6 * tile, viz.GUTTER + 3 * tile)
+    strip_shape = (viz.GUTTER + tile, viz.GUTTER + 5 * tile)
+    dump_shape = (viz.GUTTER + tile, viz.GUTTER + 3 * tile)
+
+    def counted(run) -> dict:
+        for c in counters:
+            c.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        return out, {**augment_kernel.launches, **histogram_kernel.launches,
+                     **palette_kernel.launches}
+
+    def uninterrupted():
+        t = lifecycle_trainer(device, os.path.join(root, "a"), **hist)
+        t.fit(10, update_steps=2, callbacks=["evaluate_l1", "show_discriminator_output"])
+        return t
+
+    def resumed():
+        first = lifecycle_trainer(device, os.path.join(root, "b"), **hist)
+        first.fit(6, update_steps=2)
+        t = lifecycle_trainer(device, os.path.join(root, "b"), **hist)
+        start = t.restore_latest_checkpoint()
+        if start != 6:
+            raise AssertionError(f"restored step {start}, expected 6")
+        t.fit(4, update_steps=2, starting_step=6)
+        return t
+
+    a, launches_a = counted(uninterrupted)
+    b, launches_b = counted(resumed)
+    for label, launches, steps in (("uninterrupted", launches_a, 10), ("resumed", launches_b, 10)):
+        need = {"packed": steps, "K3b": 2 * steps, "K4b": steps}
+        log("lifecycle", f"{label} run's kernel launches: {launches}")
+        if device.type == "cuda" and any(launches[k] != n for k, n in need.items()):
+            raise AssertionError(f"the {label} run launched {launches}; needed {need}")
+    for i, row in enumerate(a.history):
+        check_finite(row, f"lifecycle step {i}")
+    bad = state_mismatches(a.state, b.state)
+    log("lifecycle", f"resumed at step 6 against uninterrupted, 10 steps: {len(bad)} keys of the "
+        f"train state differ {bad[:5]}; last G total {a.history[-1]['generator/total_loss']!r} / "
+        f"{b.history[-1]['generator/total_loss']!r}")
+    if bad or b.history != a.history[6:]:
+        raise AssertionError(f"the resumed run is not the uninterrupted one bit for bit: {bad[:10]}")
+    for t in (a, b):
+        if t.manager.steps() != [10] or len(os.listdir(t.manager.directory)) != 1:
+            raise AssertionError(f"checkpoints {os.listdir(t.manager.directory)}, expected step 10 alone")
+    ckpt_bytes_f32 = os.path.getsize(a.manager.path(10))
+    log_dir = os.path.join(root, "a", "logs", a.config.architecture_name, a.config.model,
+                           a.now_string)
+    grids = sorted(glob_png(log_dir, "step_*.png"))
+    if [os.path.basename(p) for p in grids] != [f"step_{s:06d}.png" for s in range(0, 11, 2)]:
+        raise AssertionError(f"preview grids {grids}")
+    decode_written(grids, grid_shape, "preview grid")
+    strips = glob_png(log_dir, "discriminated_*_step_*_*.png")
+    if len(strips) != 6 * 4:
+        raise AssertionError(f"{len(strips)} patch-map strips, expected 24")
+    decode_written(strips, strip_shape, "patch-map strip")
+    a.save_generator()
+    fresh = lifecycle_trainer(device, os.path.join(root, "c"), **hist)
+    fresh.load_generator()
+    if not ckpt.params_equal(fresh.state.generator, a.state.generator):
+        raise AssertionError("the generator's weight file does not load back equal")
+    dumps = glob_png(a.generate_images_from_dataset("test"), "*.png")
+    if len(dumps) != 44:
+        raise AssertionError(f"{len(dumps)} image dumps, expected 44")
+    decode_written(dumps, dump_shape, "image dump")
+    log("lifecycle", f"histogram pallas2 b4 f32: resumed == uninterrupted bit for bit; one "
+        f"checkpoint (step 10, {ckpt_bytes_f32} bytes); {len(grids)} grids, {len(strips)} strips, "
+        f"generator weights round-trip, {len(dumps)} dumps decode")
+
+    def indexed():
+        from palette_and_histo_gan_tpu_torch import config_for_variant
+        from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
+
+        config = config_for_variant("indexed", temp_folder=os.path.join(root, "i"), batch_size=4)
+        datasets = loader.indexed_datasets_from_arrays(
+            *loader.synthetic_indexed_arrays(config, SEED), device, config.palette_ordering,
+            config.seed,
+        )
+        t = Trainer(config, device, datasets)
+        t.fit(2, update_steps=2, callbacks=["show_discriminator_output"])
+        return t, t.generate_images_from_dataset("test", 8)
+
+    (idx, dump_dir), launches_i = counted(indexed)
+    log("lifecycle", f"indexed run's kernel launches: {launches_i}")
+    if device.type == "cuda" and launches_i["K5"] != 4:
+        raise AssertionError(f"the indexed lifecycle run launched K5 {launches_i['K5']} times; needed 4")
+    idx_dir = os.path.join(root, "i", "logs", idx.config.architecture_name, idx.config.model,
+                           idx.now_string)
+    decode_written(glob_png(idx_dir, "step_*.png"), grid_shape, "indexed preview grid")
+    decode_written(glob_png(idx_dir, "discriminated_*.png"), strip_shape, "indexed patch-map strip")
+    idx_dumps = glob_png(dump_dir, "*.png")
+    if len(idx_dumps) != 8:
+        raise AssertionError(f"{len(idx_dumps)} indexed image dumps, expected 8")
+    decode_written(idx_dumps, dump_shape, "indexed image dump")
+    log("lifecycle", "indexed b4 f32: grids, strips and 8 dumps decode through the palettes")
+
+    t = lifecycle_trainer(device, os.path.join(root, "t"), compute_dtype="bfloat16",
+                          batch_size=1024, histogram_impl="pallas2")
+    t.fit(2, update_steps=2)  # warm-up: cuDNN plans, allocator
+    t.phase_seconds.clear()
+    held, save = [], t.saver.save
+
+    def timed_save(state):
+        t0 = time.perf_counter()
+        save(state)
+        held.append(time.perf_counter() - t0)
+
+    t.saver.save = timed_save
+    t.fit(20, update_steps=10)
+    ckpt_bytes = os.path.getsize(t.manager.path(t.state.step))
+    ps = t.phase_seconds
+    out = {
+        "launches": launches_a, "resumed_launches": launches_b, "indexed_launches": launches_i,
+        "train_chunk_ms_per_step": 1e3 * ps["train_chunk"] / 20,
+        "preview_ms": 1e3 * ps["preview"] / 3, "checkpoint_s": ps["checkpoint"],
+        "save_held_ms": 1e3 * held[0], "ckpt_bytes": ckpt_bytes, "ckpt_bytes_f32": ckpt_bytes_f32,
+    }
+    log("lifecycle", f"{card}: histogram pallas2 b1024 bf16 fit(20, update_steps=10): "
+        f"phase_seconds {json.dumps({k: round(v, 6) for k, v in ps.items()})}; train_chunk "
+        f"{out['train_chunk_ms_per_step']:.3f} ms/step, a preview {out['preview_ms']:.2f} ms, "
+        f"checkpoint {ckpt_bytes} bytes (b4 f32: {ckpt_bytes_f32}), AsyncSaver.save held the loop "
+        f"{out['save_held_ms']:.2f} ms, checkpoint phase {ps['checkpoint']:.4f} s (save + final flush)")
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -907,6 +1114,7 @@ def main() -> int:
     }
     idx_f32 = phase_timed_chunk(device, "indexed", "float32", dict(batch_size=4), steps=40)
     idx_bf16 = phase_timed_chunk(device, "indexed", "bfloat16", dict(batch_size=1024), steps=10)
+    life = phase_lifecycle(device, card)
     if "jax" in sys.modules:
         raise AssertionError("the port loaded jax")
 
@@ -926,6 +1134,13 @@ def main() -> int:
             entry["bf16_launches"] = sum(r["bf16_launches"][entry["name"]] for r in bf16.values())
     kernels.append(kernel_entry("K5", PAL_SOURCE, PAL_REPLACES, launches["K5"], 0,
                                 pal["times"][pal["n_images"]]))
+    # the launches of the lifecycle phase's uninterrupted histogram run and
+    # of its indexed run
+    for entry in kernels:
+        name = {"augment_packed": "packed"}.get(entry["name"], entry["name"])
+        counts = life["indexed_launches"] if name == "K5" else life["launches"]
+        if counts.get(name):
+            entry["lifecycle_launches"] = counts[name]
     # K3a beside the bound of its products as float32 FMAs
     k3a = next(e for e in kernels if e["name"] == "K3a")
     k3a["bound_f32_fma_ms"] = hist["times"][("K3a fma", 1024)][0]
@@ -943,6 +1158,9 @@ def main() -> int:
         + f"; indexed f32 b4 {idx_f32['ms_per_step']:.3f} ms/step {idx_f32['img_per_s']:.1f} img/s"
         + f", bf16 b1024 {idx_bf16['ms_per_step']:.3f} ms/step {idx_bf16['img_per_s']:.1f} img/s "
         + f"{idx_bf16['peak_gib']:.2f} GiB"
+        + f"; lifecycle b1024 bf16 {life['train_chunk_ms_per_step']:.3f} ms/step, preview "
+        + f"{life['preview_ms']:.2f} ms, save held {life['save_held_ms']:.2f} ms, checkpoint "
+        + f"{life['ckpt_bytes']} bytes (b4 f32 {life['ckpt_bytes_f32']})"
         + f"; smoke {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

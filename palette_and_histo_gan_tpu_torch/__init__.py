@@ -17,6 +17,7 @@ from .config import (
     Config,
     check_supported,
     config_for_variant,
+    set_deterministic_mode,
     set_f32_parity_mode,
 )
 
@@ -26,6 +27,7 @@ __all__ = [
     "Config",
     "config_for_variant",
     "check_supported",
+    "set_deterministic_mode",
     "set_f32_parity_mode",
     "MODEL_VARIANTS",
     "PALETTE_ORDERINGS",

@@ -4,8 +4,18 @@
         --steps 8 --update-steps 4 --synthetic
 
 Flags follow palette_and_histo_gan_tpu/cli.py where the port has the
-feature. It trains on the card ("cuda") unless `--device` names another
-device ("cpu" for the CPU). `--synthetic` trains on seeded sprites of the
+feature (not yet: `--data-parallel`, ROADMAP.md Queue 1 item 7, and the
+callback `evaluate_fid`, item 5). It trains on the card ("cuda") unless
+`--device` names another device ("cpu" for the CPU).
+
+`--resume` continues from the newest checkpoint under
+<temp>/training-checkpoints/ up to `--steps` in all; `--init-generator` /
+`--init-discriminator` start from converted reference weights (the Flax
+`.npz` of scripts/convert_reference_weights.py) and cannot go with
+`--resume`. After training, `--save-weights` writes both networks to
+models/py/<which>/<arch>/<model>/params.pt and `--generate-images` one
+[Input, Target, Generated] PNG per test pair under
+<temp>/generated-images/. `--synthetic` trains on seeded sprites of the
 dataset's split sizes, for machines without the dataset: random uint8
 pixels for the RGBA variants, few-colour sprites for the indexed variant
 (data/loader.py::synthetic_indexed_arrays).
@@ -23,7 +33,14 @@ import argparse
 
 import torch
 
-from .config import MODEL_VARIANTS, PALETTE_ORDERINGS, config_for_variant, set_f32_parity_mode
+from .config import (
+    DIRECTIONS,
+    MODEL_VARIANTS,
+    PALETTE_ORDERINGS,
+    Config,
+    config_for_variant,
+    set_f32_parity_mode,
+)
 
 HISTOGRAM_IMPLS = ("xla", "pallas", "pallas2")
 
@@ -34,7 +51,11 @@ def build_parser() -> argparse.ArgumentParser:
         description="palette-and-histo-gan trainer, PyTorch port",
     )
     p.add_argument("--model", choices=MODEL_VARIANTS, default="baseline-no-aug")
+    p.add_argument("--source", choices=DIRECTIONS, default="front")
+    p.add_argument("--target", choices=DIRECTIONS, default="right")
     p.add_argument("--palette-ordering", choices=PALETTE_ORDERINGS, default="grayness")
+    p.add_argument("--lambda-l1", type=float, default=None)
+    p.add_argument("--lambda-histogram", type=float, default=None)
     p.add_argument("--lambda-segmentation", type=float, default=None)
     p.add_argument("--epochs", type=int, default=160)
     p.add_argument("--steps", type=int, default=None, help="override epoch-derived steps")
@@ -43,6 +64,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default="float32")
     p.add_argument("--seed", type=int, default=47)
     p.add_argument("--data-root", type=str, default=None)
+    p.add_argument(
+        "--data-roots", type=str, nargs="+", default=None,
+        help="several dataset roots, concatenated in global-index order",
+    )
+    p.add_argument(
+        "--dataset-sizes", type=int, nargs="+", default=None,
+        help="one dataset size per root; each splits ceil(0.85 * n) / the rest",
+    )
     p.add_argument(
         "--synthetic", action="store_true",
         help="train on seeded synthetic sprites instead of the dataset",
@@ -59,11 +88,25 @@ def build_parser() -> argparse.ArgumentParser:
         "--up-filters", type=int, nargs=6, default=None,
         help="decoder widths override (default 512 512 256 128 64 32)",
     )
-    p.add_argument("--callbacks", nargs="*", default=[], choices=["evaluate_l1"])
+    p.add_argument(
+        "--callbacks", nargs="*", default=[],
+        choices=["show_discriminator_output", "evaluate_l1"],
+    )
     p.add_argument(
         "--histogram-impl", choices=HISTOGRAM_IMPLS, default=None,
         help="histogram loss path (default: 'pallas2' on a CUDA device, 'xla' on the CPU)",
     )
+    p.add_argument("--resume", action="store_true", help="continue from the newest checkpoint")
+    p.add_argument(
+        "--init-generator", type=str, default=None, metavar="NPZ",
+        help="start from converted reference generator weights; not with --resume",
+    )
+    p.add_argument(
+        "--init-discriminator", type=str, default=None, metavar="NPZ",
+        help="start from converted reference discriminator weights; not with --resume",
+    )
+    p.add_argument("--save-weights", action="store_true")
+    p.add_argument("--generate-images", action="store_true")
     return p
 
 
@@ -74,22 +117,47 @@ def histogram_impl(args: argparse.Namespace) -> str:
     return "pallas2" if torch.device(args.device).type == "cuda" else "xla"
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+def config_from_args(args: argparse.Namespace) -> Config:
     overrides = dict(
+        source_direction=DIRECTIONS.index(args.source),
+        target_direction=DIRECTIONS.index(args.target),
         palette_ordering=args.palette_ordering, epochs=args.epochs,
         batch_size=args.batch_size, seed=args.seed, compute_dtype=args.compute_dtype,
         histogram_impl=histogram_impl(args),
     )
-    if args.lambda_segmentation is not None:
-        overrides["lambda_segmentation"] = args.lambda_segmentation
-    if args.data_root is not None:
-        overrides["data_root"] = args.data_root
+    for name in ("lambda_l1", "lambda_histogram", "lambda_segmentation", "data_root"):
+        if getattr(args, name) is not None:
+            overrides[name] = getattr(args, name)
     if args.down_filters is not None:
         overrides["down_filters"] = tuple(args.down_filters)
     if args.up_filters is not None:
         overrides["up_filters"] = tuple(args.up_filters)
-    config = config_for_variant(args.model, **overrides)
+    if args.data_roots is not None:
+        overrides["data_roots"] = tuple(args.data_roots)
+        sizes = args.dataset_sizes
+        if sizes is None and len(args.data_roots) != 1:
+            raise SystemExit(
+                f"--data-roots got {len(args.data_roots)} roots but "
+                "--dataset-sizes was not given; pass one size per root"
+            )
+        if sizes is not None and len(sizes) != len(args.data_roots):
+            raise SystemExit(
+                f"--data-roots ({len(args.data_roots)}) and --dataset-sizes "
+                f"({len(sizes)}) must have the same length"
+            )
+    if args.dataset_sizes is not None:
+        overrides["dataset_sizes"] = tuple(args.dataset_sizes)
+    return config_for_variant(args.model, **overrides)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.resume and (args.init_generator or args.init_discriminator):
+        raise SystemExit(
+            "--resume and --init-generator/--init-discriminator are mutually "
+            "exclusive (a checkpoint restore would overwrite the import)"
+        )
+    config = config_from_args(args)
     if config.compute_dtype == "float32":
         # float32 means the reference's float32: no TF32 convolutions
         set_f32_parity_mode()
@@ -109,6 +177,13 @@ def main(argv=None) -> int:
                 *loader.synthetic_arrays(config, args.seed), args.device
             )
     trainer = Trainer(config, args.device, datasets=datasets)
+    starting_step = 0
+    if args.resume:
+        starting_step = trainer.restore_latest_checkpoint()
+        print(f"Resumed from step {starting_step}")
+    if args.init_generator or args.init_discriminator:
+        trainer.import_network_params(args.init_generator, args.init_discriminator)
+        print("Imported converted reference weights")
     steps = args.steps if args.steps is not None else config.steps
     update_steps = args.update_steps if args.update_steps is not None else config.update_steps
     print(
@@ -116,7 +191,13 @@ def main(argv=None) -> int:
         f"{trainer.device}: {steps} steps, updating every {update_steps}, "
         f"histogram_impl {config.histogram_impl}..."
     )
-    trainer.fit(steps, update_steps, callbacks=list(args.callbacks))
+    trainer.fit(steps - starting_step, update_steps, callbacks=list(args.callbacks),
+                starting_step=starting_step)
+    if args.save_weights:
+        trainer.save_generator()
+        trainer.save_discriminator()
+    if args.generate_images:
+        trainer.generate_images_from_dataset("test")
     return 0
 
 

@@ -308,3 +308,12 @@ def set_f32_parity_mode() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def set_deterministic_mode() -> None:
+    """Pin cuDNN to deterministic algorithms, chosen without benchmarking,
+    for runs that must repeat bit for bit on the card (a resumed run
+    against the uninterrupted one). Callers opt in; the package does not
+    set it."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False

@@ -3,7 +3,10 @@
 
 The tree is what the JAX package's `create_train_state` holds (its
 `g_params` / `d_params`), or what `palette_and_histo_gan_tpu/models/
-convert.py` builds from the reference's canonical TF names.
+convert.py` builds from the reference's canonical TF names; on disk it is
+an `.npz` with '/'-joined keys (`save_params_npz` / `load_params_npz`, the
+format of the JAX module's functions of the same names and of
+`scripts/convert_reference_weights.py`).
 
 Layouts:
   * Conv (flax nn.Conv, kernel (kh, kw, in, out)) -> PyTorch
@@ -34,15 +37,34 @@ def _conv_transpose(k: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(k[::-1, ::-1], (2, 3, 0, 1)))
 
 
-def _flatten(tree, prefix="") -> dict:
+def flatten_tree(tree: dict, prefix: str = "") -> dict:
+    """A nested dict as {'/'-joined key: leaf}."""
     flat = {}
     for key, value in tree.items():
-        name = f"{prefix}/{key}" if prefix else key
+        name = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(value, dict):
-            flat.update(_flatten(value, name))
+            flat.update(flatten_tree(value, name))
         else:
-            flat[name] = np.asarray(value, np.float32)
+            flat[name] = value
     return flat
+
+
+def save_params_npz(path: str, params: dict) -> None:
+    """Save a Flax parameter tree as an .npz with '/'-joined keys."""
+    np.savez(path, **flatten_tree(params))
+
+
+def load_params_npz(path: str) -> dict:
+    """Inverse of save_params_npz: '/'-joined .npz -> nested tree."""
+    tree: dict = {}
+    with np.load(path) as f:
+        for key in f.files:
+            node = tree
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = f[key]
+    return tree
 
 
 def _generator_key_map(depth: int, up_depth: int) -> dict:
@@ -71,7 +93,7 @@ def _discriminator_key_map() -> dict:
 
 
 def _convert(tree, key_map, module: nn.Module, what: str) -> dict:
-    flat = _flatten(tree)
+    flat = flatten_tree(tree)
     expected = module.state_dict()
     missing = sorted(set(expected) - set(key_map))
     if missing:
@@ -81,8 +103,8 @@ def _convert(tree, key_map, module: nn.Module, what: str) -> dict:
         path, layout = key_map[key]
         if path not in flat:
             raise ValueError(f"{what}: Flax tree has no {path} (for {key})")
-        arr = flat.pop(path)
-        if layout is not None:
+        arr = np.asarray(flat.pop(path), np.float32)
+        if layout is not None and arr.ndim == 4:
             arr = layout(arr)
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(

@@ -3,6 +3,7 @@
 from .losses import bce_with_logits, discriminator_loss, generator_loss
 from .state import KerasAdam, TrainState, build_models, create_train_state, param_count
 from .steps import (
+    discriminate,
     generate,
     indexed_train_step,
     make_train_chunk,
@@ -19,6 +20,7 @@ __all__ = [
     "build_models",
     "create_train_state",
     "param_count",
+    "discriminate",
     "generate",
     "indexed_train_step",
     "make_train_chunk",

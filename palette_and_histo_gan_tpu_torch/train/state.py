@@ -4,6 +4,8 @@ Mirrors palette_and_histo_gan_tpu/train/state.py. JAX's immutable pytree
 becomes one mutable object that the train step updates in place; the
 PRNG key it carried becomes two explicit `torch.Generator`s on the device,
 one for the augmentation draws and one for the dropout masks.
+`TrainState.state_dict()` is the whole of it as one plain dict, what a
+checkpoint holds (train/checkpoint.py); `load_state_dict` puts one back.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from torch import nn
 
 from ..config import Config, compute_dtype
+from ..models.convert import flatten_tree
 from ..models.networks import build_discriminator, build_generator, init_parameters
 
 
@@ -40,6 +43,16 @@ class KerasAdam(torch.optim.Optimizer):
 
     def __init__(self, params, lr=2e-4, betas=(0.5, 0.999), eps=1e-7):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+        # the state exists from the start, so that a fresh optimizer and a
+        # restored one hold the same keys
+        self.reset()
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """Zero moments and step counts, as at construction."""
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p] = {"step": 0, "m": torch.zeros_like(p), "v": torch.zeros_like(p)}
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -51,10 +64,6 @@ class KerasAdam(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 state = self.state[p]
-                if not state:
-                    state["step"] = 0
-                    state["m"] = torch.zeros_like(p)
-                    state["v"] = torch.zeros_like(p)
                 m, v, g = state["m"], state["v"], p.grad
                 m.mul_(b1).add_(g, alpha=1.0 - b1)
                 v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
@@ -89,6 +98,57 @@ class TrainState:
     d_optimizer: KerasAdam
     aug_generator: torch.Generator
     dropout_generator: torch.Generator
+
+    def _parts(self):
+        return (("generator", self.generator, self.g_optimizer),
+                ("discriminator", self.discriminator, self.d_optimizer))
+
+    def state_dict(self) -> dict:
+        """The whole state as one plain dict of tensors, ints and dicts:
+        the step, both modules' state_dicts, both optimizers' moments and
+        step counts by parameter name, and both generators' states (their
+        Philox offsets make dropout and the augmentation draws repeat).
+        The tensors are the live ones, not copies."""
+        out: dict = {"step": self.step}
+        for name, module, optimizer in self._parts():
+            out[name] = module.state_dict()
+            params = module.named_parameters()
+            states = [(k, optimizer.state[p]) for k, p in params]
+            out[f"{name}_optimizer"] = {
+                key: {k: st[key] for k, st in states} for key in ("step", "m", "v")
+            }
+        out["aug_generator"] = self.aug_generator.get_state()
+        out["dropout_generator"] = self.dropout_generator.get_state()
+        return out
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Load a `state_dict()` in place, every tensor onto this state's
+        device and dtype. A missing, extra or mis-shaped key raises
+        ValueError before anything is changed."""
+        current, given = flatten_tree(self.state_dict()), flatten_tree(state_dict)
+        missing, extra = sorted(current.keys() - given.keys()), sorted(given.keys() - current.keys())
+        if missing or extra:
+            raise ValueError(f"train state: missing keys {missing[:3]}, extra keys {extra[:3]}")
+        for key, ref in current.items():
+            value = given[key]
+            if isinstance(ref, torch.Tensor):
+                if not isinstance(value, torch.Tensor) or value.shape != ref.shape:
+                    shape = tuple(value.shape) if isinstance(value, torch.Tensor) else type(value)
+                    raise ValueError(f"train state: {key} is {shape}, expected {tuple(ref.shape)}")
+            elif type(value) is not int:
+                raise ValueError(f"train state: {key} is {value!r}, expected an int")
+        with torch.no_grad():
+            for name, module, optimizer in self._parts():
+                module.load_state_dict(state_dict[name])
+                saved = state_dict[f"{name}_optimizer"]
+                for k, p in module.named_parameters():
+                    st = optimizer.state[p]
+                    st["step"] = saved["step"][k]
+                    st["m"].copy_(saved["m"][k])
+                    st["v"].copy_(saved["v"][k])
+        self.aug_generator.set_state(state_dict["aug_generator"].cpu())
+        self.dropout_generator.set_state(state_dict["dropout_generator"].cpu())
+        self.step = state_dict["step"]
 
 
 def build_models(config: Config, device, seed: int) -> tuple[nn.Module, nn.Module]:

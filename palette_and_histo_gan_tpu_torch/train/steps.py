@@ -4,7 +4,8 @@ generate core.
 Mirrors palette_and_histo_gan_tpu/train/steps.py: `rgba_train_step`
 (:170-310) with its histogram dispatch (:234-276), `indexed_train_step`
 (:318-394), the u32 row pack (:402-426), `make_train_step` (:454),
-`make_train_chunk` (:467-515) and `generate_core` (:536-570). Where JAX
+`make_train_chunk` (:467-515), `generate_core` (:536-570) and
+`make_discriminate_fn` (:578-588). Where JAX
 takes `value_and_grad` of two pure loss functions, a step runs the
 generator once, backpropagates the generator loss into the generator's
 parameters only, runs the discriminator on the detached fake,
@@ -235,3 +236,11 @@ def generate(config: Config, generator, source: torch.Tensor,
         logits = generator(source.float(), dropout_generator, logits=True)
         return torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
     return generator(source, dropout_generator)
+
+
+@torch.no_grad()
+def discriminate(config: Config, discriminator, target: torch.Tensor,
+                 source: torch.Tensor) -> torch.Tensor:
+    """The discriminator's patch probabilities, the sigmoid of its
+    (B, 32, 32, 1) logits, for the patch-map debug figures."""
+    return torch.sigmoid(discriminator(target, source))

@@ -1,34 +1,56 @@
-"""Training loop: chunked steps, per-step scalars, ETA, L1 evaluation.
+"""Training loop with its lifecycle: chunked steps, per-step scalars, ETA,
+previews, discriminator patch maps, L1 evaluation, checkpoints and resume,
+weight files, weight import and image dumps.
 
-Mirrors palette_and_histo_gan_tpu/train/trainer.py:59-240 (`Trainer.fit`):
-training runs in chunks of `update_steps` steps whose metrics stay on the
-device and come to the host once per chunk; between chunks the host writes
-the per-step scalars at the reference's quantized step (utils/logging.py),
-prints the ETA and, with the "evaluate_l1" callback, the train/test L1.
-`phase_seconds` accumulates wall time per phase.
+Mirrors palette_and_histo_gan_tpu/train/trainer.py (`Trainer`): training
+runs in chunks of `update_steps` steps whose metrics stay on the device and
+come to the host once per chunk. At the starting step and after every
+chunk the host previews 3 test + 3 train translations, draws the
+discriminator's patch maps ("show_discriminator_output") and reports the
+train/test L1 ("evaluate_l1"); after every chunk it writes the per-step
+scalars at the reference's quantized step (utils/logging.py), prints the
+ETA, and every `update_steps * 5` steps and at the end it checkpoints
+through train/checkpoint.py::AsyncSaver, whose copies and writes ride
+behind the next chunks. `phase_seconds` accumulates wall time per phase.
 
-Not ported yet (ROADMAP.md, Queue 1): preview grids, checkpoints, weight
-export, FID and the discriminator debug maps. The callbacks that ask for
-them raise NotImplementedError.
+Previews, patch maps and image dumps run the generator with dropout on,
+as the reference does, from generators of their own: one per call seeded
+from (seed, PREVIEW_STREAM, step) for previews and dumps (JAX:
+fold_in(PRNGKey(seed), step)) and one seeded seed + 1 for each patch map
+(JAX: PRNGKey(seed + 1)). They never draw from the state's generators, so
+a resumed run, which previews at its starting step, equals the
+uninterrupted one.
+
+Not ported yet (ROADMAP.md, Queue 1): FID (item 5), whose callback
+"evaluate_fid" raises NotImplementedError, and data parallelism (item 7).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..config import Config, check_supported
 from ..data.loader import IndexedDataset, RgbaDataset, make_indexed_datasets, make_rgba_datasets
 from ..eval import metrics as eval_metrics
+from ..models import convert
+from ..ops.image import normalize
+from ..ops.palette import indexed_to_rgba
 from ..utils import logging as log_utils
-from ..utils.io import seconds_to_human_readable
+from ..utils import visualization as viz
+from ..utils.io import delete_folder, ensure_folder_structure, seconds_to_human_readable
+from . import checkpoint as ckpt
 from .state import TrainState, create_train_state, param_count
-from .steps import make_train_chunk
+from .steps import discriminate, generate, make_train_chunk
 
-SUPPORTED_CALLBACKS = ("evaluate_l1",)
+SUPPORTED_CALLBACKS = ("evaluate_l1", "show_discriminator_output")
+# the previews' stream, past the state's seed + 4 and + 5 (state.py)
+PREVIEW_STREAM = 6
 
 
 def show_eta(training_start_time, step_start_time, current_step, starting_step,
@@ -41,6 +63,13 @@ def show_eta(training_start_time, step_start_time, current_step, starting_step,
     print(f"Time since start: {seconds_to_human_readable(elapsed)}")
     print(f"Estimated time to finish: {seconds_to_human_readable(eta)}")
     print(f"Last {update_steps} steps took: {now - step_start_time:.2f}s\n")
+
+
+def preview_seed(seed: int, step: int) -> int:
+    """The seed of the preview generator at `step`: 64 bits drawn from
+    (seed, PREVIEW_STREAM, step), apart from training's seed + 4 / + 5."""
+    entropy = np.random.SeedSequence([seed, PREVIEW_STREAM, max(step, 0)])
+    return int(entropy.generate_state(1, np.uint64)[0])
 
 
 class Trainer:
@@ -83,7 +112,10 @@ class Trainer:
             f"{param_count(self.state.discriminator):,} parameters"
         )
         self.train_chunk = make_train_chunk(config, self.train_ds.n, config.seed)
+        self.manager = ckpt.make_manager(config)
+        self.saver = ckpt.AsyncSaver(self.manager)
         self.writer = None
+        self.now_string = None
         self.phase_seconds: dict[str, float] = {}
         # per-step host metrics of every fit, in step order
         self.history: list[dict[str, float]] = []
@@ -98,30 +130,42 @@ class Trainer:
                 self.phase_seconds.get(name, 0.0) + time.perf_counter() - t0
             )
 
+    def _generator(self, seed: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return gen
+
+    # ----------------------------------------------------------------------
     def fit(self, steps: int | None = None, update_steps: int | None = None,
-            callbacks: Sequence[str] = ()):
+            callbacks: Sequence[str] = (), starting_step: int = 0):
         config = self.config
         steps = config.steps if steps is None else steps
         update_steps = config.update_steps if update_steps is None else update_steps
         unsupported = [c for c in callbacks if c not in SUPPORTED_CALLBACKS]
         if unsupported:
             raise NotImplementedError(
-                f"callbacks {unsupported} are not ported yet (ROADMAP.md, Queue 1); "
-                f"supported: {SUPPORTED_CALLBACKS}"
+                f"callbacks {unsupported} are not ported yet (evaluate_fid: ROADMAP.md, "
+                f"Queue 1 item 5); supported: {SUPPORTED_CALLBACKS}"
             )
-        if self.writer is None:
-            self.writer, _ = log_utils.make_writer(config)
+        if starting_step == 0 or self.writer is None:
+            self.writer, self.now_string = log_utils.make_writer(config)
         try:
-            self._do_fit(steps, update_steps, callbacks)
+            self._do_fit(steps, update_steps, callbacks, starting_step)
         finally:
+            # a crash mid-chunk keeps the snapshot already taken; a failing
+            # flush here must not mask the error that ended the loop (the
+            # loop's own flush below raises its failures)
+            try:
+                self.saver.flush()
+            except Exception as e:
+                print(f"checkpoint flush on exit failed: {e!r}")
             self.writer.flush()
 
-    def _do_fit(self, steps, update_steps, callbacks):
-        starting_step = self.state.step
+    def _do_fit(self, steps, update_steps, callbacks, starting_step):
+        examples = self.select_examples_for_visualization()
         training_start = step_start = time.time()
         dataset = (self.train_ds.sources, self.train_ds.targets)
-        if "evaluate_l1" in callbacks:
-            self._evaluate_l1(starting_step, update_steps)
+        self._update_visualization(examples, starting_step, update_steps, callbacks)
         done = 0
         while done < steps:
             chunk = min(update_steps, steps - done)
@@ -143,8 +187,15 @@ class Trainer:
             show_eta(training_start, step_start, current_step, starting_step,
                      steps, update_steps)
             step_start = time.time()
-            if "evaluate_l1" in callbacks:
-                self._evaluate_l1(current_step, update_steps)
+            self._update_visualization(examples, current_step, update_steps, callbacks)
+
+            # the reference's cadence (side2side_model.py:121-122)
+            if current_step % (update_steps * 5) == 0 or done >= steps:
+                with self._phase("checkpoint"):
+                    self.saver.save(self.state)
+
+        with self._phase("checkpoint"):
+            self.saver.flush()
 
         total = sum(self.phase_seconds.values())
         if total > 0:
@@ -154,13 +205,110 @@ class Trainer:
             )
             print(f"Phase breakdown: {breakdown}")
 
-    def _evaluate_l1(self, step: int, update_steps: int):
-        with self._phase("evaluate_l1"):
-            l1_train, l1_test = self.report_l1(
-                step=log_utils.quantize_step(step, update_steps)
-            )
-        print(f"L1: {l1_train:.5f} / {l1_test:.5f} (train/test)")
+    # ----------------------------------------------------------------------
+    def _update_visualization(self, examples, step, update_steps, callbacks):
+        config = self.config
+        qstep = log_utils.quantize_step(step, update_steps)
+        save_name = os.path.join(
+            config.temp_folder, "logs", config.architecture_name, config.model,
+            self.now_string or "run", f"step_{step:06d}.png",
+        )
+        print(f"Previewing images generated at step {step} (3 test + 3 train)...")
+        with self._phase("preview"):
+            image = self.preview_generated_images(examples, save_name, step)
+            self.writer.image(save_name, image, qstep)
 
+        if "show_discriminator_output" in callbacks:
+            print("Showing discriminator output patches (2 test + 2 train)...")
+            with self._phase("discriminator_debug"):
+                run_dir = os.path.dirname(save_name)
+                for split in ("test", "train"):
+                    prefix = os.path.join(run_dir, f"discriminated_{split}_step_{step:06d}")
+                    images = self.show_discriminated_images(split, 2, save_prefix=prefix)
+                    for i, img in enumerate(images):
+                        self.writer.image(f"{prefix}_{i}.png", img, qstep)
+        if "evaluate_l1" in callbacks:
+            with self._phase("evaluate_l1"):
+                l1_train, l1_test = self.report_l1(step=qstep)
+            print(f"L1: {l1_train:.5f} / {l1_test:.5f} (train/test)")
+
+    def _example(self, ds, i: int) -> tuple:
+        if self.config.is_indexed:
+            return ds.sources[i], ds.targets[i], ds.palettes[i]
+        return ds.sources[i], ds.targets[i]
+
+    def select_examples_for_visualization(self, number_of_examples: int = 6) -> list:
+        """The first examples of the test split, then of the train split,
+        half each (pix2pix_model.py:103-110); fewer where a split is
+        smaller."""
+        num_train = number_of_examples // 2
+        num_test = number_of_examples - num_train
+        return [
+            self._example(ds, i)
+            for ds, num in ((self.test_ds, num_test), (self.train_ds, num_train))
+            for i in range(min(num, ds.n))
+        ]
+
+    @torch.no_grad()
+    def preview_generated_images(self, examples, save_name=None, step=None) -> np.ndarray:
+        """The [Input, Target, Generated] grid of `examples` (tuples from
+        select_examples_for_visualization) as HWC uint8, written to
+        `save_name` when one is given."""
+        config = self.config
+        drop = self._generator(preview_seed(config.seed, step or 0))
+        src, tgt = (torch.stack([e[k] for e in examples]) for k in (0, 1))
+        if config.is_indexed:
+            palettes = torch.stack([e[2] for e in examples])
+            fake = generate(config, self.state.generator, src, drop)
+            sources, targets, generated = (
+                indexed_to_rgba(x, palettes).cpu().numpy() for x in (src, tgt, fake)
+            )
+            return viz.preview_grid(sources, targets, generated, save_name, step,
+                                    values_in_unit_range=True)
+        src, tgt = normalize(src.float()), normalize(tgt.float())
+        fake = generate(config, self.state.generator, src, drop)
+        return viz.preview_grid(src.cpu().numpy(), tgt.cpu().numpy(),
+                                fake.float().cpu().numpy(), save_name, step)
+
+    @torch.no_grad()
+    def show_discriminated_images(self, dataset_name: str = "test", num_images: int = 2,
+                                  save_prefix: str | None = None) -> list[np.ndarray]:
+        """The discriminator's patch maps on the first `num_images` pairs of
+        a split, against their targets and their translations
+        (pix2pix_model.py:161-229): one HWC uint8 strip each, written to
+        `<save_prefix>_<i>.png` when a prefix is given. Prints each pair's
+        two patch means, which the JAX figures show as titles."""
+        config = self.config
+        ds = self.test_ds if dataset_name == "test" else self.train_ds
+        G, D = self.state.generator, self.state.discriminator
+        outputs = []
+        for i in range(min(num_images, ds.n)):
+            drop = self._generator(config.seed + 1)
+            src, tgt = ds.sources[i:i + 1], ds.targets[i:i + 1]
+            if config.is_indexed:
+                fake = generate(config, G, src, drop)
+                real_p = discriminate(config, D, tgt.float(), src.float())
+                fake_p = discriminate(config, D, fake.float(), src.float())
+                pal = ds.palettes[i]
+                images = [indexed_to_rgba(x[0], pal) for x in (src, tgt, fake)]
+            else:
+                src, tgt = normalize(src.float()), normalize(tgt.float())
+                fake = generate(config, G, src, drop)
+                real_p = discriminate(config, D, tgt, src)
+                fake_p = discriminate(config, D, fake, src)
+                images = [src[0], tgt[0], fake[0].float()]
+            source, target, generated = (x.cpu().numpy() for x in images)
+            real_p, fake_p = real_p[0].cpu().numpy(), fake_p[0].cpu().numpy()
+            print(f"{dataset_name} pair {i}: discriminated target {np.mean(real_p):.3f}, "
+                  f"discriminated generated {np.mean(fake_p):.3f}")
+            outputs.append(viz.discriminator_debug_figure(
+                source, target, generated, real_p, fake_p,
+                save_name=f"{save_prefix}_{i}.png" if save_prefix else None,
+                values_in_unit_range=config.is_indexed,
+            ))
+        return outputs
+
+    # -- evaluation ---------------------------------------------------------
     def report_l1(self, num_images: int | None = None, step: int | None = None):
         """(train, test) L1 over the first num_images of each split
         (default: the test split's size)."""
@@ -177,3 +325,66 @@ class Trainer:
                 {"l1-evaluation/train": values[0], "l1-evaluation/test": values[1]}, step
             )
         return values
+
+    # -- image dumps (side2side_model.py:202-222) ---------------------------
+    def generate_images_from_dataset(self, dataset_name: str = "test",
+                                     num_images: int | None = None, steps=None) -> str:
+        """One [Input, Target, Generated] PNG per pair of a split, 0.png
+        to <n - 1>.png, in a folder emptied first; returns the folder."""
+        config = self.config
+        ds = self.test_ds if dataset_name == "test" else self.train_ds
+        n = ds.n if num_images is None else min(num_images, ds.n)
+        base = os.path.join(
+            config.temp_folder, "generated-images", config.architecture_name, config.model
+        )
+        delete_folder(base)
+        ensure_folder_structure(base)
+        for i in range(n):
+            self.preview_generated_images(
+                [self._example(ds, i)], os.path.join(base, f"{i}.png"), steps
+            )
+        print(f'Generated {n} images (using "{dataset_name}" dataset)')
+        return base
+
+    # -- weights (side2side_model.py:178-200) -------------------------------
+    def save_generator(self) -> str:
+        return ckpt.save_params(self.config, "generator", self.state.generator)
+
+    def load_generator(self) -> None:
+        ckpt.load_params(self.config, "generator", self.state.generator)
+
+    def save_discriminator(self) -> str:
+        return ckpt.save_params(self.config, "discriminator", self.state.discriminator)
+
+    def load_discriminator(self) -> None:
+        ckpt.load_params(self.config, "discriminator", self.state.discriminator)
+
+    def import_network_params(self, generator_npz: str | None = None,
+                              discriminator_npz: str | None = None) -> None:
+        """Load converted reference weights (the '/'-joined Flax .npz of
+        models/convert.py::save_params_npz) into the live state, e.g. to
+        fine-tune or generate from a model trained with the TF reference.
+        Strict: a missing, extra or mis-shaped key raises ValueError naming
+        it, before anything changes. The imported network's optimizer
+        state and the step reset to zero: this is a weight import, not a
+        resume."""
+        state = self.state
+        loads = []
+        for npz, module, optimizer, bridge in (
+            (generator_npz, state.generator, state.g_optimizer,
+             convert.generator_state_dict_from_flax),
+            (discriminator_npz, state.discriminator, state.d_optimizer,
+             convert.discriminator_state_dict_from_flax),
+        ):
+            if npz:
+                loads.append((module, optimizer, bridge(convert.load_params_npz(npz), module)))
+        for module, optimizer, state_dict in loads:
+            module.load_state_dict(state_dict)
+            optimizer.reset()
+        if loads:
+            state.step = 0
+
+    def restore_latest_checkpoint(self) -> int:
+        """Resume from the latest checkpoint; returns the restored step."""
+        self.manager.restore(self.state)
+        return self.state.step

@@ -1,6 +1,23 @@
-"""Time formatting for the training log."""
+"""Filesystem helpers and time formatting for the training log
+(palette_and_histo_gan_tpu/utils/io.py)."""
 
 from __future__ import annotations
+
+import os
+import shutil
+
+
+def ensure_folder_structure(*folders: str) -> str:
+    """Create the nested folders, relative to the working directory unless
+    absolute, and return the path."""
+    path = os.path.join(os.getcwd(), *folders)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def delete_folder(path: str) -> None:
+    """rm -rf, ignoring errors."""
+    shutil.rmtree(path, ignore_errors=True)
 
 
 def seconds_to_human_readable(time: float) -> str:
