@@ -82,13 +82,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      "pallas2" the bfloat16 forward (K3b) must run twice a step, 24 times,
      under "pallas2" and histogram_bwd="pallas" the bfloat16 backward (K4b
      and K4c) once a step, 12 times, and no tensor-core kernel otherwise.
- 11. lifecycle, under deterministic cuDNN (phase_lifecycle): a full-width
-     histogram "pallas2" b4 float32 run of 10 steps against 6 steps, a
-     fresh Trainer restored from their checkpoint and 4 more, bit for bit,
-     the kernels' launches counted around both; its previews, patch-map
-     strips, weight file and 44 image dumps written and decoded; an
-     indexed run with its K5 dataset build and 8 dumps; a b1024 bfloat16
-     fit with its previews and checkpoint, timed by phase.
+ 11. FID (phase_fid), under deterministic cuDNN from here on: InceptionV3
+     at input 299 (random numpy-drawn weights unless PHG_INCEPTION_WEIGHTS
+     names converted ones); 22 images' activations
+     on the card against the CPU in both quirk modes (1e-4 of the largest);
+     the same bits whether the caller left TF32 on or off, and how far a
+     TF32 forward moves them; 44 vs 44 FIDs by low-rank, float64 eigh and
+     scipy and of identical sets; the forward at batch 11 against its
+     bound.
+ 12. lifecycle (phase_lifecycle): a full-width histogram "pallas2" b4
+     float32 run of 10 steps against 6 steps, a fresh Trainer restored
+     from their checkpoint and 4 more, both with the FID report, bit for
+     bit, the kernels' launches counted around both; its previews,
+     patch-map strips, weight file and 44 image dumps written and decoded;
+     an indexed run with its K5 dataset build and 8 dumps; a b1024
+     bfloat16 fit with its previews, FID reports and checkpoint, timed by
+     phase, and one report_fid timed.
+ 13. export (phase_export): the trained b4 float32 generator and
+     discriminator exported at batch 16, saved, loaded and held to the
+     modules (1e-6); 44 PNGs served through the program at batch 16, each
+     output equal to the module's quantized output; program vs eager ms at
+     batch 16 float32 and batch 1024 bfloat16.
+ 14. run_experiment: `python -m palette_and_histo_gan_tpu_torch.run_experiment
+     --model histogram --synthetic` at full width on the card, 4 steps with
+     the three callbacks, exits 0.
 
 The kernels line gives each kernel's time at the main path's largest
 shape beside its bound: the largest of the bytes it must move (inputs read
@@ -815,22 +832,25 @@ def state_mismatches(a, b) -> list[str]:
             if not (torch.equal(v.cpu(), fb[k].cpu()) if isinstance(v, torch.Tensor) else v == fb[k])]
 
 
-def lifecycle_trainer(device, temp_folder: str, variant: str = "histogram", **overrides):
+def lifecycle_trainer(device, temp_folder: str, variant: str = "histogram",
+                      fid_evaluator=None, **overrides):
     from palette_and_histo_gan_tpu_torch import config_for_variant
     from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
 
     config = config_for_variant(variant, temp_folder=temp_folder, **overrides)
-    return Trainer(config, device, synthetic_datasets(config, device))
+    return Trainer(config, device, synthetic_datasets(config, device), fid_evaluator)
 
 
-def phase_lifecycle(device, card: str) -> dict:
+def phase_lifecycle(device, card: str, fid_evaluator) -> tuple[dict, object, object]:
     """The Trainer's lifecycle at full width on the card, under float32
     parity and deterministic cuDNN:
       1. histogram "pallas2", batch 4, float32, augmentation on (K1,
          hist_fwd_f32 and hist_bwd_f32 as K3b / K4b): (a) fit(10,
-         update_steps=2) with the L1 report and the patch maps; (b)
-         fit(6), a fresh Trainer restored from step 6, fit(4,
-         starting_step=6). (b) equals (a) bit for bit; both ran the
+         update_steps=2) with the L1 and FID reports and the patch maps;
+         (b) fit(6), a fresh Trainer restored from step 6, fit(4,
+         starting_step=6), both with the FID report. (b) equals (a) bit
+         for bit (the FID draws from none of the state's generators); both
+         ran the
          kernels; one checkpoint, of step 10; every preview grid and
          patch-map strip written and decodes; the generator's weight
          file loads back equal in a fresh Trainer; the test split's 44
@@ -838,10 +858,12 @@ def phase_lifecycle(device, card: str) -> dict:
       2. indexed, batch 4, float32: the datasets built by K5, fit(2) with
          the patch maps, 8 image dumps through the palette decode;
       3. histogram "pallas2" at batch 1024 bfloat16: after a 2-step
-         warm-up, fit(20, update_steps=10) with its previews and one
-         checkpoint; phase_seconds, the checkpoint's bytes and the time
-         AsyncSaver.save held the loop.
-    Returns each run's launch counts and the timings."""
+         warm-up, fit(20, update_steps=10) with its previews, FID reports
+         and one checkpoint; phase_seconds, the checkpoint's bytes and the
+         time AsyncSaver.save held the loop; then one report_fid, timed.
+    The FID reports share `fid_evaluator`. Returns each run's launch
+    counts and the timings, the trained b4 float32 Trainer of (a) and the
+    b1024 bfloat16 one."""
     import shutil
 
     from palette_and_histo_gan_tpu_torch import set_deterministic_mode
@@ -869,18 +891,20 @@ def phase_lifecycle(device, card: str) -> dict:
                      **palette_kernel.launches}
 
     def uninterrupted():
-        t = lifecycle_trainer(device, os.path.join(root, "a"), **hist)
-        t.fit(10, update_steps=2, callbacks=["evaluate_l1", "show_discriminator_output"])
+        t = lifecycle_trainer(device, os.path.join(root, "a"), fid_evaluator=fid_evaluator, **hist)
+        t.fit(10, update_steps=2,
+              callbacks=["evaluate_l1", "evaluate_fid", "show_discriminator_output"])
         return t
 
     def resumed():
-        first = lifecycle_trainer(device, os.path.join(root, "b"), **hist)
-        first.fit(6, update_steps=2)
-        t = lifecycle_trainer(device, os.path.join(root, "b"), **hist)
+        first = lifecycle_trainer(device, os.path.join(root, "b"), fid_evaluator=fid_evaluator,
+                                  **hist)
+        first.fit(6, update_steps=2, callbacks=["evaluate_fid"])
+        t = lifecycle_trainer(device, os.path.join(root, "b"), fid_evaluator=fid_evaluator, **hist)
         start = t.restore_latest_checkpoint()
         if start != 6:
             raise AssertionError(f"restored step {start}, expected 6")
-        t.fit(4, update_steps=2, starting_step=6)
+        t.fit(4, update_steps=2, callbacks=["evaluate_fid"], starting_step=6)
         return t
 
     a, launches_a = counted(uninterrupted)
@@ -921,6 +945,8 @@ def phase_lifecycle(device, card: str) -> dict:
     if len(dumps) != 44:
         raise AssertionError(f"{len(dumps)} image dumps, expected 44")
     decode_written(dumps, dump_shape, "image dump")
+    log("lifecycle", f"evaluate_fid in the b4 f32 runs: {a.phase_seconds['evaluate_fid']:.3f} s "
+        f"(6 reports), {b.phase_seconds['evaluate_fid']:.3f} s (resumed half, 3 reports)")
     log("lifecycle", f"histogram pallas2 b4 f32: resumed == uninterrupted bit for bit; one "
         f"checkpoint (step 10, {ckpt_bytes_f32} bytes); {len(grids)} grids, {len(strips)} strips, "
         f"generator weights round-trip, {len(dumps)} dumps decode")
@@ -952,8 +978,8 @@ def phase_lifecycle(device, card: str) -> dict:
     decode_written(idx_dumps, dump_shape, "indexed image dump")
     log("lifecycle", "indexed b4 f32: grids, strips and 8 dumps decode through the palettes")
 
-    t = lifecycle_trainer(device, os.path.join(root, "t"), compute_dtype="bfloat16",
-                          batch_size=1024, histogram_impl="pallas2")
+    t = lifecycle_trainer(device, os.path.join(root, "t"), fid_evaluator=fid_evaluator,
+                          compute_dtype="bfloat16", batch_size=1024, histogram_impl="pallas2")
     t.fit(2, update_steps=2)  # warm-up: cuDNN plans, allocator
     t.phase_seconds.clear()
     held, save = [], t.saver.save
@@ -964,21 +990,260 @@ def phase_lifecycle(device, card: str) -> dict:
         held.append(time.perf_counter() - t0)
 
     t.saver.save = timed_save
-    t.fit(20, update_steps=10)
+    t.fit(20, update_steps=10, callbacks=["evaluate_fid"])
     ckpt_bytes = os.path.getsize(t.manager.path(t.state.step))
-    ps = t.phase_seconds
+    ps = dict(t.phase_seconds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fids = t.report_fid()
+    torch.cuda.synchronize()
+    report_fid_s = time.perf_counter() - t0
+    if not all(math.isfinite(v) for v in fids):
+        raise AssertionError(f"b1024 bf16 FID {fids}")
     out = {
         "launches": launches_a, "resumed_launches": launches_b, "indexed_launches": launches_i,
         "train_chunk_ms_per_step": 1e3 * ps["train_chunk"] / 20,
         "preview_ms": 1e3 * ps["preview"] / 3, "checkpoint_s": ps["checkpoint"],
         "save_held_ms": 1e3 * held[0], "ckpt_bytes": ckpt_bytes, "ckpt_bytes_f32": ckpt_bytes_f32,
+        "evaluate_fid_s": ps["evaluate_fid"] / 3, "report_fid_s": report_fid_s,
     }
     log("lifecycle", f"{card}: histogram pallas2 b1024 bf16 fit(20, update_steps=10): "
         f"phase_seconds {json.dumps({k: round(v, 6) for k, v in ps.items()})}; train_chunk "
         f"{out['train_chunk_ms_per_step']:.3f} ms/step, a preview {out['preview_ms']:.2f} ms, "
         f"checkpoint {ckpt_bytes} bytes (b4 f32: {ckpt_bytes_f32}), AsyncSaver.save held the loop "
-        f"{out['save_held_ms']:.2f} ms, checkpoint phase {ps['checkpoint']:.4f} s (save + final flush)")
+        f"{out['save_held_ms']:.2f} ms, checkpoint phase {ps['checkpoint']:.4f} s (save + final flush); "
+        f"evaluate_fid {ps['evaluate_fid']:.4f} s for 3 reports; one more report_fid "
+        f"(2 splits x 2 sets x 44 images) {report_fid_s:.4f} s: FID {fids[0]!r} / {fids[1]!r} "
+        "(train/test)")
+    return out, a, t
+
+
+# ------------------------------------------------------------------- FID
+
+
+FID_BATCH = 11  # FidEvaluator's default, the reference's batch
+FID_ACT_REL = 1e-4  # card vs CPU activations, of the largest |activation|
+FID_EIGH_REL = 1e-4  # low-rank vs float64 eigh
+FID_SAME_REL = 1e-3  # identical sets, of FID(a, b)
+
+
+def fid_sprites(n: int, seed: int) -> np.ndarray:
+    """n seeded synthetic sprites, (n, 64, 64, 4) uint8."""
+    return np.random.default_rng(seed).integers(0, 256, (n, 64, 64, 4), dtype=np.uint8)
+
+
+def phase_fid(device, card: str) -> tuple[dict, object]:
+    """The FID at full width (input 299), with the weights PHG_INCEPTION_WEIGHTS
+    names or, unset, random numpy-drawn ones:
+      (a) 22 images' activations on the card against the same evaluator on
+          the CPU, quirks on ([-1, 1] sprites) and off ([0, 255]);
+      (b) the card's activations equal whether the caller left TF32 on or
+          off (the evaluator pins it off); how far a TF32 forward moves them;
+      (c) 44 vs 44 card activations, quirks off: FID by low-rank, float64
+          eigh and scipy, and of identical sets;
+      (d) the Inception forward at batch 11 against its bound, the 94
+          convolutions' operations at float32's peak.
+    Returns the timings and the card's evaluator (quirks on), which the
+    lifecycle's Trainers share."""
+    from palette_and_histo_gan_tpu_torch import set_deterministic_mode
+    from palette_and_histo_gan_tpu_torch.eval import fid
+    from palette_and_histo_gan_tpu_torch.models import inception
+
+    set_deterministic_mode()  # one cuDNN algorithm whatever the caller's TF32 flags
+    t0 = time.perf_counter()
+    card_ev = fid.FidEvaluator(FID_BATCH, device=device)
+    cpu_ev = fid.FidEvaluator(FID_BATCH, device="cpu")
+    log("fid", f"evaluators built in {time.perf_counter() - t0:.2f} s (the same weights on both "
+        "devices)")
+    out = {}
+    sprites = fid_sprites(44, SEED)
+    modes = {True: sprites[:22].astype(np.float32) / 127.5 - 1.0,
+             False: sprites[:22].astype(np.float32)}
+    for quirks, x in modes.items():
+        card_ev.reference_quirks = cpu_ev.reference_quirks = quirks
+        got, want = card_ev.activations(x).cpu(), cpu_ev.activations(x)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        log("fid", f"(a) quirks {quirks}: card vs CPU activations max abs {err:.3e} "
+            f"({err / scale:.3e} of max |act| {scale:.4f}; tol {FID_ACT_REL})")
+        if not err <= FID_ACT_REL * scale:
+            raise AssertionError(f"FID activations, quirks {quirks}: card vs CPU {err} > "
+                                 f"{FID_ACT_REL} x {scale}")
+    card_ev.reference_quirks = False
+
+    x = torch.from_numpy(modes[False]).to(device)
+    caller = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+    runs = {}
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.set_float32_matmul_precision("high" if tf32 else "highest")
+        runs[tf32] = card_ev.activations(x)
+        if torch.backends.cudnn.allow_tf32 != tf32:
+            raise AssertionError("the evaluator did not restore the caller's cuDNN TF32 flag")
+    torch.backends.cudnn.allow_tf32 = True
+    with torch.inference_mode():
+        pre = fid.preprocess_input(fid.scale_images_nn(x[:FID_BATCH], card_ev.input_size, False))
+        tf32_acts = card_ev.model(pre)
+    torch.backends.cudnn.allow_tf32, _ = caller
+    torch.set_float32_matmul_precision(caller[1])
+    if not torch.equal(runs[True], runs[False]):
+        raise AssertionError("FID activations depend on the caller's TF32 setting")
+    moved = float((tf32_acts - runs[False][:FID_BATCH]).abs().max())
+    scale = float(runs[False].abs().max())
+    log("fid", f"(b) activations bit-equal with the caller's TF32 on and off; a TF32 forward "
+        f"would move them by up to {moved:.3e} ({moved / scale:.3e} of max |act|)")
+
+    a = fid_sprites(44, SEED + 1).astype(np.float32)
+    b = np.clip(a + np.random.default_rng(SEED + 2).normal(0, 60, a.shape), 0, 255)
+    acts_a, acts_b = card_ev.activations(a), card_ev.activations(b.astype(np.float32))
+    lowrank = float(fid.frechet_distance_lowrank(acts_a, acts_b))
+    mu1, s1 = fid.activation_statistics(acts_a)
+    mu2, s2 = fid.activation_statistics(acts_b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eigh = float(fid.frechet_distance(mu1, s1, mu2, s2))
+    eigh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scipy_value = fid.frechet_distance_scipy(mu1, s1, mu2, s2)
+    scipy_s = time.perf_counter() - t0
+    same = float(fid.frechet_distance_lowrank(acts_a, acts_a))
+    out.update(fid_lowrank=lowrank, fid_eigh=eigh, fid_scipy=scipy_value, fid_same=same,
+               eigh_s=eigh_s, scipy_s=scipy_s)
+    log("fid", f"(c) 44 vs 44, quirks off: low-rank {lowrank!r}, float64 eigh {eigh!r} "
+        f"({eigh_s:.3f} s), scipy {scipy_value!r} ({scipy_s:.1f} s on the host); low-rank vs "
+        f"eigh {abs(lowrank - eigh) / abs(eigh):.3e} relative, vs scipy "
+        f"{abs(lowrank - scipy_value) / abs(scipy_value):.3e}; identical sets {same!r}")
+    if not abs(lowrank - eigh) <= FID_EIGH_REL * abs(eigh):
+        raise AssertionError(f"FID low-rank {lowrank} vs float64 eigh {eigh}")
+    if not abs(lowrank - scipy_value) <= 1e-2 * abs(scipy_value) + 1e-2:
+        raise AssertionError(f"FID low-rank {lowrank} vs scipy {scipy_value}")
+    if not abs(same) < FID_SAME_REL * abs(lowrank) + 1e-3:
+        raise AssertionError(f"FID of identical sets {same}")
+
+    with fid.float32_exact(), torch.inference_mode():
+        out["forward_ms"] = cuda_ms(lambda: card_ev.model(pre), 20)
+    flops = inception.conv_flops(card_ev.model, card_ev.input_size)
+    out["bound_ms"] = 1e3 * FID_BATCH * flops / PEAK["float32"]
+    out["img_per_s"] = 1e3 * FID_BATCH / out["forward_ms"]
+    log("fid", f"(d) {card}: Inception forward at batch {FID_BATCH}, 299x299, float32 (TF32 off): "
+        f"{out['forward_ms']:.3f} ms ({out['img_per_s']:.1f} img/s); bound {out['bound_ms']:.3f} ms "
+        f"({flops / 1e9:.3f} GFLOP an image in the 94 convolutions at 67 TFLOP/s), "
+        f"{100 * out['bound_ms'] / out['forward_ms']:.1f}% of it")
+    card_ev.reference_quirks = True
+    return out, card_ev
+
+
+# ---------------------------------------------------------------- export
+
+
+def phase_export(device, card: str, trained, bf16) -> dict:
+    """Programs of the lifecycle's trained b4 float32 state at batch 16:
+    the generator's and the discriminator's, saved and loaded back, against
+    the modules (dropout off) within 1e-6 and equal over two calls; 44
+    synthetic test PNGs served through the generator's program at batch 16
+    (3 batches, the last padded), each output PNG equal to the module's
+    quantized output; the programs' ms a batch against the eager modules',
+    batch 16 float32 and batch 1024 bfloat16 (`bf16`'s generator)."""
+    import shutil
+
+    from palette_and_histo_gan_tpu_torch import serve
+    from palette_and_histo_gan_tpu_torch.models import export
+    from palette_and_histo_gan_tpu_torch.native import png_io
+    from palette_and_histo_gan_tpu_torch.utils import visualization as viz
+
+    root = os.path.join(TEMP_FOLDER, "export")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    config, g, d = trained.config, trained.state.generator, trained.state.discriminator
+    t0 = time.perf_counter()
+    paths = {}
+    for which, program in (("generator", export.export_generator(config, g, 16)),
+                           ("discriminator", export.export_discriminator(config, d, 16))):
+        paths[which] = os.path.join(root, f"{which}.pt2")
+        torch.export.save(program, paths[which])
+    export_s = time.perf_counter() - t0
+    pg, pd = (export.load_exported(paths[w]) for w in ("generator", "discriminator"))
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.uniform(-1, 1, (16, 64, 64, 4)).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.uniform(-1, 1, (16, 64, 64, 4)).astype(np.float32)).to(device)
+    with torch.inference_mode():
+        checks = {"generator": (pg(x), pg(x), g(x, None, deterministic=True)),
+                  "discriminator": (pd(y, x), pd(y, x), d(y, x))}
+    errs = {}
+    for which, (got, again, want) in checks.items():
+        errs[which] = float((got - want).abs().max())
+        if not torch.equal(got, again) or not errs[which] <= 1e-6:
+            raise AssertionError(f"exported {which}: {errs[which]} from the module, or two calls "
+                                 "differ")
+    log("export", f"generator and discriminator exported at batch 16 in {export_s:.2f} s; "
+        f"loaded programs vs modules max abs {errs} (tol 1e-6); two calls equal")
+
+    src_dir, out_dir = os.path.join(root, "in"), os.path.join(root, "out")
+    os.makedirs(src_dir)
+    pixels = trained.test_ds.sources.cpu().numpy()
+    for i, img in enumerate(pixels):
+        viz._write_png(img, os.path.join(src_dir, f"{i:02d}.png"))
+    t0 = time.perf_counter()
+    served = serve.do_serve(serve.build_parser().parse_args(
+        ["serve", "--program", paths["generator"], "--input-dir", src_dir, "--output-dir", out_dir]))
+    serve_s = time.perf_counter() - t0
+    source = pixels.astype(np.float32) / 127.5 - 1.0
+    want = []
+    with torch.inference_mode():
+        for chunk, n_real in serve.padded_batches(source, 16):
+            fake = g(torch.from_numpy(chunk).to(device), None, deterministic=True)
+            want.append(fake.float().cpu().numpy()[:n_real])
+    want = ((np.concatenate(want) + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
+    names = sorted(os.listdir(out_dir))
+    if served != 44 or len(names) != 44:
+        raise AssertionError(f"served {names}")
+    for i, name in enumerate(names):
+        path = os.path.join(out_dir, name)
+        img = png_io.decode_png_rgba(path, 64, 64)
+        if png_io.png_header(path)[2] != 6 or img is None or not np.array_equal(img, want[i]):
+            raise AssertionError(f"served {path} is not the module's quantized output")
+    log("export", f"served {len(names)} PNGs at batch 16 (3 batches, the last padded) in "
+        f"{serve_s:.2f} s: each an RGBA PNG equal to the module's quantized output")
+
+    out = {}
+    with torch.inference_mode():
+        out["f32_b16"] = (cuda_ms(lambda: pg(x), 50), cuda_ms(lambda: g(x, None, deterministic=True), 50))
+        xb = torch.from_numpy(np.random.default_rng(SEED + 1).uniform(
+            -1, 1, (1024, 64, 64, 4)).astype(np.float32)).to(device)
+        gb = bf16.state.generator
+        pb = export.export_generator(bf16.config, gb, 1024).module()
+        err = float((pb(xb) - gb(xb, None, deterministic=True)).abs().max())
+        out["bf16_b1024"] = (cuda_ms(lambda: pb(xb), 10),
+                             cuda_ms(lambda: gb(xb, None, deterministic=True), 10))
+    log("export", f"{card}: ms a batch, exported program / eager module: batch 16 float32 "
+        f"{out['f32_b16'][0]:.3f} / {out['f32_b16'][1]:.3f}; batch 1024 bfloat16 "
+        f"{out['bf16_b1024'][0]:.3f} / {out['bf16_b1024'][1]:.3f} (program vs module max abs "
+        f"{err:.3e})")
     return out
+
+
+def phase_run_experiment(device) -> float:
+    """python -m palette_and_histo_gan_tpu_torch.run_experiment at full
+    width on the card, synthetic sprites, 4 steps with the three callbacks;
+    it must exit 0. Returns its wall seconds."""
+    root = os.path.abspath(os.path.join(TEMP_FOLDER, "experiment"))
+    os.makedirs(root, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "palette_and_histo_gan_tpu_torch.run_experiment", "--model",
+         "histogram", "--synthetic", "--device", str(device), "--steps", "4",
+         "--update-steps", "2"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600,
+    )
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    fids = [line for line in lines if line.startswith("FID: ")]
+    log("run_experiment", f"exit {proc.returncode} in {seconds:.1f} s; {fids}; "
+        f"last line {lines[-1] if lines else None!r}")
+    if proc.returncode != 0 or len(fids) != 3:
+        raise AssertionError(f"run_experiment failed: {proc.stderr[-3000:]}")
+    return seconds
 
 
 # ------------------------------------------------------------------- main
@@ -1114,7 +1379,10 @@ def main() -> int:
     }
     idx_f32 = phase_timed_chunk(device, "indexed", "float32", dict(batch_size=4), steps=40)
     idx_bf16 = phase_timed_chunk(device, "indexed", "bfloat16", dict(batch_size=1024), steps=10)
-    life = phase_lifecycle(device, card)
+    fid_out, fid_evaluator = phase_fid(device, card)
+    life, trained, bf16_trainer = phase_lifecycle(device, card, fid_evaluator)
+    exp = phase_export(device, card, trained, bf16_trainer)
+    experiment_s = phase_run_experiment(device)
     if "jax" in sys.modules:
         raise AssertionError("the port loaded jax")
 
@@ -1161,6 +1429,12 @@ def main() -> int:
         + f"; lifecycle b1024 bf16 {life['train_chunk_ms_per_step']:.3f} ms/step, preview "
         + f"{life['preview_ms']:.2f} ms, save held {life['save_held_ms']:.2f} ms, checkpoint "
         + f"{life['ckpt_bytes']} bytes (b4 f32 {life['ckpt_bytes_f32']})"
+        + f"; FID: Inception b{FID_BATCH} {fid_out['forward_ms']:.3f} ms ({fid_out['img_per_s']:.1f} img/s, "
+        + f"bound {fid_out['bound_ms']:.3f} ms), report_fid {life['report_fid_s']:.4f} s, evaluate_fid "
+        + f"{life['evaluate_fid_s']:.4f} s a report (b1024 bf16 fit), low-rank {fid_out['fid_lowrank']:.6f} / "
+        + f"eigh {fid_out['fid_eigh']:.6f} / scipy {fid_out['fid_scipy']:.6f}"
+        + f"; export ms program/eager b16 f32 {exp['f32_b16'][0]:.3f}/{exp['f32_b16'][1]:.3f}, b1024 bf16 "
+        + f"{exp['bf16_b1024'][0]:.3f}/{exp['bf16_b1024'][1]:.3f}; run_experiment {experiment_s:.1f} s"
         + f"; smoke {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

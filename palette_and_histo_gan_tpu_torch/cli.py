@@ -4,9 +4,11 @@
         --steps 8 --update-steps 4 --synthetic
 
 Flags follow palette_and_histo_gan_tpu/cli.py where the port has the
-feature (not yet: `--data-parallel`, ROADMAP.md Queue 1 item 7, and the
-callback `evaluate_fid`, item 5). It trains on the card ("cuda") unless
-`--device` names another device ("cpu" for the CPU).
+feature (not yet: `--data-parallel`, ROADMAP.md Queue 1 item 7). It trains
+on the card ("cuda") unless `--device` names another device ("cpu" for the
+CPU). `--callbacks evaluate_fid` reports the train/test FID (eval/fid.py;
+PHG_INCEPTION_WEIGHTS names converted pretrained InceptionV3 weights, else
+the weights are random).
 
 `--resume` continues from the newest checkpoint under
 <temp>/training-checkpoints/ up to `--steps` in all; `--init-generator` /
@@ -90,7 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--callbacks", nargs="*", default=[],
-        choices=["show_discriminator_output", "evaluate_l1"],
+        choices=["show_discriminator_output", "evaluate_fid", "evaluate_l1"],
     )
     p.add_argument(
         "--histogram-impl", choices=HISTOGRAM_IMPLS, default=None,

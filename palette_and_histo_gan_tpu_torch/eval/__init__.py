@@ -1,5 +1,12 @@
-"""Evaluation: the L1 report of every variant."""
+"""Evaluation: FID on the card and the L1 report of every variant."""
 
+from .fid import (
+    FidEvaluator,
+    frechet_distance,
+    frechet_distance_lowrank,
+    frechet_distance_scipy,
+    sqrtm_newton_schulz,
+)
 from .metrics import (
     evaluate_l1,
     generate_split,
@@ -9,6 +16,11 @@ from .metrics import (
 )
 
 __all__ = [
+    "FidEvaluator",
+    "frechet_distance",
+    "frechet_distance_lowrank",
+    "frechet_distance_scipy",
+    "sqrtm_newton_schulz",
     "evaluate_l1",
     "generate_split",
     "generate_split_indexed",

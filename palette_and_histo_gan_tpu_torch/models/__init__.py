@@ -1,25 +1,7 @@
-"""The U-Net generator, the PatchGAN discriminator and the Flax weight bridge."""
+"""The networks and their weights: the U-Net generator and the PatchGAN
+discriminator (`networks`), the Flax weight bridge (`convert`), the FID's
+InceptionV3 (`inception`) and the serving export (`export`).
 
-from . import convert
-from .networks import (
-    DownBlock,
-    InstanceNorm,
-    PatchDiscriminator,
-    UnetGenerator,
-    UpBlock,
-    build_discriminator,
-    build_generator,
-    init_parameters,
-)
-
-__all__ = [
-    "convert",
-    "DownBlock",
-    "InstanceNorm",
-    "PatchDiscriminator",
-    "UnetGenerator",
-    "UpBlock",
-    "build_discriminator",
-    "build_generator",
-    "init_parameters",
-]
+The package imports none of them, so that a serving process can load an
+exported program (`export.load_exported`) without the model code.
+"""

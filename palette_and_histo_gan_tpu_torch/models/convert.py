@@ -1,5 +1,6 @@
 """The weight bridge: a Flax parameter tree (as numpy) to the port's
-`state_dict`s, for the generator and the discriminator.
+`state_dict`s, for the generator, the discriminator and the FID's
+InceptionV3 (`inception_state_dict_from_flat`).
 
 The tree is what the JAX package's `create_train_state` holds (its
 `g_params` / `d_params`), or what `palette_and_histo_gan_tpu/models/
@@ -137,3 +138,23 @@ def load_flax_params(generator: nn.Module, discriminator: nn.Module,
             discriminator_state_dict_from_flax(d_tree, discriminator)
         )
 
+
+
+def _inception_key_map(num_units: int) -> dict:
+    m = {}
+    for k in range(num_units):
+        prefix = f"params/ConvBN_{k}"
+        m[f"units.{k}.weight"] = (f"{prefix}/Conv_0/kernel", _conv)
+        for leaf in ("mean", "var", "beta"):
+            m[f"units.{k}.{leaf}"] = (f"{prefix}/{leaf}", None)
+    return m
+
+
+def inception_state_dict_from_flat(flat: dict, module: nn.Module) -> dict:
+    """A flat InceptionV3 weight dict ('/'-joined Flax paths such as
+    params/ConvBN_{k}/Conv_0/kernel (HWIO) and params/ConvBN_{k}/{beta,
+    mean,var}: the layout of the JAX module's convert_keras_model and of
+    its variables flattened) as `module`'s state_dict (models/
+    inception.py). Strict: a missing, extra or mis-shaped key raises
+    ValueError naming it."""
+    return _convert(flat, _inception_key_map(len(module.units)), module, "inception")

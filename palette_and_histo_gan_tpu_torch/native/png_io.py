@@ -15,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 
@@ -102,3 +103,17 @@ def decode_folder(folder: str, n: int, h: int = 64, w: int = 64, start: int = 0)
         folder.encode(), start, n, h, w, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
     )
     return out if rc == 0 else None
+
+
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+
+
+def png_header(path: str) -> tuple[int, int, int]:
+    """(height, width, colour type) from a PNG's IHDR chunk, which the
+    format puts first."""
+    with open(path, "rb") as f:
+        head = f.read(26)
+    if len(head) < 26 or head[:8] != PNG_MAGIC or head[12:16] != b"IHDR":
+        raise ValueError(f"{path} is not a PNG")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width, head[25]

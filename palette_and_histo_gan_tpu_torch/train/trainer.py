@@ -1,13 +1,14 @@
 """Training loop with its lifecycle: chunked steps, per-step scalars, ETA,
-previews, discriminator patch maps, L1 evaluation, checkpoints and resume,
-weight files, weight import and image dumps.
+previews, discriminator patch maps, L1 and FID evaluation, checkpoints and
+resume, weight files, weight import and image dumps.
 
 Mirrors palette_and_histo_gan_tpu/train/trainer.py (`Trainer`): training
 runs in chunks of `update_steps` steps whose metrics stay on the device and
 come to the host once per chunk. At the starting step and after every
 chunk the host previews 3 test + 3 train translations, draws the
 discriminator's patch maps ("show_discriminator_output") and reports the
-train/test L1 ("evaluate_l1"); after every chunk it writes the per-step
+train/test L1 ("evaluate_l1") and FID ("evaluate_fid"; eval/fid.py, built
+at its first report); after every chunk it writes the per-step
 scalars at the reference's quantized step (utils/logging.py), prints the
 ETA, and every `update_steps * 5` steps and at the end it checkpoints
 through train/checkpoint.py::AsyncSaver, whose copies and writes ride
@@ -19,10 +20,10 @@ from (seed, PREVIEW_STREAM, step) for previews and dumps (JAX:
 fold_in(PRNGKey(seed), step)) and one seeded seed + 1 for each patch map
 (JAX: PRNGKey(seed + 1)). They never draw from the state's generators, so
 a resumed run, which previews at its starting step, equals the
-uninterrupted one.
+uninterrupted one. The evaluations seed theirs as the JAX Trainer does: L1
+seed + 2, FID seed + 3.
 
-Not ported yet (ROADMAP.md, Queue 1): FID (item 5), whose callback
-"evaluate_fid" raises NotImplementedError, and data parallelism (item 7).
+Not ported yet (ROADMAP.md, Queue 1): data parallelism (item 7).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 from ..config import Config, check_supported
 from ..data.loader import IndexedDataset, RgbaDataset, make_indexed_datasets, make_rgba_datasets
 from ..eval import metrics as eval_metrics
+from ..eval.fid import FidEvaluator
 from ..models import convert
 from ..ops.image import normalize
 from ..ops.palette import indexed_to_rgba
@@ -48,7 +50,7 @@ from . import checkpoint as ckpt
 from .state import TrainState, create_train_state, param_count
 from .steps import discriminate, generate, make_train_chunk
 
-SUPPORTED_CALLBACKS = ("evaluate_l1", "show_discriminator_output")
+SUPPORTED_CALLBACKS = ("evaluate_fid", "evaluate_l1", "show_discriminator_output")
 # the previews' stream, past the state's seed + 4 and + 5 (state.py)
 PREVIEW_STREAM = 6
 
@@ -79,12 +81,14 @@ class Trainer:
     (data.loader.datasets_from_arrays) or, for the indexed variant,
     IndexedDatasets (data.loader.indexed_datasets_from_arrays). By default
     the splits are decoded from config's dataset roots (and, for the
-    indexed variant, indexed on the device through kernel K5). There is no
-    fallback between devices: "cuda" without a card raises.
+    indexed variant, indexed on the device through kernel K5).
+    `fid_evaluator` serves report_fid; by default a FidEvaluator on `device`
+    is built at the first report. There is no fallback between devices:
+    "cuda" without a card raises.
     """
 
     def __init__(self, config: Config, device: torch.device | str,
-                 datasets: tuple | None = None):
+                 datasets: tuple | None = None, fid_evaluator: FidEvaluator | None = None):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -114,6 +118,7 @@ class Trainer:
         self.train_chunk = make_train_chunk(config, self.train_ds.n, config.seed)
         self.manager = ckpt.make_manager(config)
         self.saver = ckpt.AsyncSaver(self.manager)
+        self.fid = fid_evaluator
         self.writer = None
         self.now_string = None
         self.phase_seconds: dict[str, float] = {}
@@ -143,10 +148,7 @@ class Trainer:
         update_steps = config.update_steps if update_steps is None else update_steps
         unsupported = [c for c in callbacks if c not in SUPPORTED_CALLBACKS]
         if unsupported:
-            raise NotImplementedError(
-                f"callbacks {unsupported} are not ported yet (evaluate_fid: ROADMAP.md, "
-                f"Queue 1 item 5); supported: {SUPPORTED_CALLBACKS}"
-            )
+            raise ValueError(f"unknown callbacks {unsupported}; supported: {SUPPORTED_CALLBACKS}")
         if starting_step == 0 or self.writer is None:
             self.writer, self.now_string = log_utils.make_writer(config)
         try:
@@ -231,6 +233,10 @@ class Trainer:
             with self._phase("evaluate_l1"):
                 l1_train, l1_test = self.report_l1(step=qstep)
             print(f"L1: {l1_train:.5f} / {l1_test:.5f} (train/test)")
+        if "evaluate_fid" in callbacks:
+            with self._phase("evaluate_fid"):
+                fid_train, fid_test = self.report_fid(step=qstep)
+            print(f"FID: {fid_train:.3f} / {fid_test:.3f} (train/test)")
 
     def _example(self, ds, i: int) -> tuple:
         if self.config.is_indexed:
@@ -325,6 +331,27 @@ class Trainer:
                 {"l1-evaluation/train": values[0], "l1-evaluation/test": values[1]}, step
             )
         return values
+
+    def report_fid(self, num_images: int | None = None, step: int | None = None):
+        """(train, test) FID between the first num_images targets of each
+        split and their translations (default: the test split's size). The
+        translations draw their dropout masks, the train split's then the
+        test split's, from one generator seeded seed + 3 (the JAX Trainer's
+        FID seed), never from the state's."""
+        if num_images is None:
+            num_images = sum(self.config.test_sizes)
+        if self.fid is None:
+            self.fid = FidEvaluator(device=self.device)
+        drop = self._generator(self.config.seed + 3)
+        values = []
+        for ds in (self.train_ds, self.test_ds):
+            real, fake = eval_metrics.generate_split(
+                self.config, self.state.generator, ds, num_images, drop
+            )
+            values.append(self.fid.compare(real, fake))
+        if self.writer is not None and step is not None:
+            self.writer.scalars({"fid/train": values[0], "fid/test": values[1]}, step)
+        return values[0], values[1]
 
     # -- image dumps (side2side_model.py:202-222) ---------------------------
     def generate_images_from_dataset(self, dataset_name: str = "test",

@@ -84,14 +84,14 @@ def _layout(tiles: list[list[np.ndarray]]) -> np.ndarray:
 
 
 def _write_png(data: np.ndarray, save_name: str) -> None:
-    """HWC uint8 RGB -> an 8-bit RGB PNG (colour type 2, filter 0 on every
-    row), with zlib and struct only."""
+    """HWC uint8 RGB or RGBA -> an 8-bit PNG of colour type 2 (RGB) or 6
+    (RGBA), filter 0 on every row, with zlib and struct only."""
     data = np.ascontiguousarray(data)
-    if data.dtype != np.uint8 or data.ndim != 3 or data.shape[2] != 3:
-        raise ValueError(f"expected HWC uint8 RGB, got {data.dtype} {data.shape}")
-    h, w, _ = data.shape
-    raw = np.zeros((h, 1 + 3 * w), np.uint8)  # a filter byte 0 a row
-    raw[:, 1:] = data.reshape(h, 3 * w)
+    if data.dtype != np.uint8 or data.ndim != 3 or data.shape[2] not in (3, 4):
+        raise ValueError(f"expected HWC uint8 RGB or RGBA, got {data.dtype} {data.shape}")
+    h, w, c = data.shape
+    raw = np.zeros((h, 1 + c * w), np.uint8)  # a filter byte 0 a row
+    raw[:, 1:] = data.reshape(h, c * w)
 
     def chunk(tag: bytes, body: bytes) -> bytes:
         crc = zlib.crc32(tag + body) & 0xFFFFFFFF
@@ -99,7 +99,7 @@ def _write_png(data: np.ndarray, save_name: str) -> None:
 
     png = b"".join((
         b"\x89PNG\r\n\x1a\n",
-        chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)),
+        chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)),
         chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)),
         chunk(b"IEND", b""),
     ))

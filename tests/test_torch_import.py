@@ -1,6 +1,7 @@
 """The PyTorch port runs without JAX and without the JAX package.
 
-* In a fresh interpreter: import the port, train one step of a narrow
+* In a fresh interpreter: import the port (with its FID, export, serving
+  and experiment modules), train one step of a narrow
   histogram-variant Trainer and one of a narrow indexed Trainer on the CPU
   (the plain augmentation and the plain palette index, since the tensors
   lie on the CPU), and check that neither `jax` nor any module of
@@ -26,7 +27,10 @@ PROGRAM = textwrap.dedent(
     import json, math, sys
 
     import palette_and_histo_gan_tpu_torch as port
+    from palette_and_histo_gan_tpu_torch import run_experiment, serve
     from palette_and_histo_gan_tpu_torch.data import loader
+    from palette_and_histo_gan_tpu_torch.eval import fid
+    from palette_and_histo_gan_tpu_torch.models import export, inception
     from palette_and_histo_gan_tpu_torch.ops import augment_kernel, palette_kernel
     from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
 

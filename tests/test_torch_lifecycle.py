@@ -8,7 +8,9 @@
     carry weight), histogram under "pallas2" (the kernels' plain versions
     on the CPU) and indexed; a preview or patch map in between does not
     move training's generators (tests/test_trainer.py:192 is the model);
-  * the preview generators' seeds are not training's; FID still raises;
+  * the preview generators' seeds are not training's; a fit with FID whose
+    weights file is missing, or with an unknown callback, raises before
+    its first step;
   * the CLI: --resume with --init-* exits, --data-roots without matching
     --dataset-sizes exits, and a 2-chunk run with the lifecycle flags
     writes its previews, strips, weights and image dump, which --resume
@@ -95,10 +97,14 @@ def test_preview_seeds_are_not_training_seeds():
     assert preview_seed(seed, 3) != preview_seed(seed + 1, 3)
 
 
-def test_fit_refuses_fid_until_it_is_ported(tmp_path):
+def test_fit_refuses_fid_until_it_is_ported(tmp_path, monkeypatch):
+    # FID is ported; what it refuses is a run whose weights file is missing
+    monkeypatch.setenv("PHG_INCEPTION_WEIGHTS", str(tmp_path / "missing.npz"))
     trainer = narrow_trainer("baseline-no-aug", tmp_path)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(FileNotFoundError, match="missing.npz"):
         trainer.fit(steps=1, update_steps=1, callbacks=["evaluate_fid"])
+    with pytest.raises(ValueError, match="unknown callbacks"):
+        trainer.fit(steps=1, update_steps=1, callbacks=["evaluate_kid"])
     assert trainer.state.step == 0
 
 
