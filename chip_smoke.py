@@ -103,7 +103,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      modules (1e-6); 44 PNGs served through the program at batch 16, each
      output equal to the module's quantized output; program vs eager ms at
      batch 16 float32 and batch 1024 bfloat16.
- 14. run_experiment: `python -m palette_and_histo_gan_tpu_torch.run_experiment
+ 14. data parallel (phase_data_parallel), under deterministic cuDNN: two
+     Gloo ranks sharing the card (processes of parallel/launch.py), a
+     full-width histogram "pallas2" b4 float32 Trainer with
+     data_parallel="on", fit(4) with the L1 report, against one process
+     (losses, parameters, the L1 report, each rank's kernel launches), the
+     data-parallel generate of 44 sources with dropout against generate,
+     the sharded FID activations against the unsharded ones; NCCL at world
+     size 1, b1024 bfloat16 "pallas2" ms/step against one device in turns,
+     the gradient all_reduces' ms a step; NCCL across cards where there are
+     two or more, else logged as skipped.
+ 15. run_experiment: `python -m palette_and_histo_gan_tpu_torch.run_experiment
      --model histogram --synthetic` at full width on the card, 4 steps with
      the three callbacks, exits 0.
 
@@ -118,7 +128,8 @@ histogram_bound). K3a also gives the bound with its products as float32
 FMAs (bound_f32_fma_ms), which no design on the CUDA cores can pass; K3b,
 K4b and K4c the tensor-core kernels' launches in the b1024 bf16 chunks
 (bf16_launches); K1, K3b, K4b and K5 their launches in the lifecycle
-phase (lifecycle_launches).
+phase (lifecycle_launches), K1, K3b and K4b a data-parallel rank's in
+part 1 of the data-parallel phase (dp_rank_launches).
 """
 
 from __future__ import annotations
@@ -1246,6 +1257,280 @@ def phase_run_experiment(device) -> float:
     return seconds
 
 
+# ---------------------------------------------------------- data parallel
+
+DP_RANKS = 2  # the Gloo ranks that share the card in part 1
+DP_LOSS_TOL = dict(rtol=1e-4, atol=1e-6)  # tests/test_torch_parallel.py's
+# the parameters after one step: elementwise within the CPU tests' rtol
+# 2e-3 / atol 1e-4, and each tensor's change within DP_DELTA_REL of the
+# one process's change in Frobenius norm (tests/test_torch_train_step.py
+# holds the port to JAX so). After 4 steps they are reported, not gated:
+# Adam's m / (sqrt(v) + eps) turns last-bit differences of gradients near 0
+# into differences of up to a step (lr 2e-4) and the GAN's next steps
+# carry them on; the same one-process fit under other cuDNN algorithms
+# (the control beside it) lands further off than the ranks do (on an
+# H100 80GB HBM3 at 700 W: changes 5.4e-2 off and 37,937 elements outside,
+# against the ranks' 1.0e-2 and 281)
+DP_PARAM_TOL = dict(rtol=2e-3, atol=1e-4)
+DP_DELTA_REL = 1e-3
+# the data-parallel generate's [-1, 1] fakes against generate's: the
+# convolutions of 22 rows and of 44 sum in other orders; a row given
+# another row's dropout masks is off by tenths
+DP_GENERATE_ATOL = 1e-5
+DP_STEPS = 4
+
+
+def dp_histories_close(histories: list, want: list, what: str) -> None:
+    for rank, history in enumerate(histories):
+        if len(history) != len(want):
+            raise AssertionError(f"{what}: rank {rank} logged {len(history)} steps, not {len(want)}")
+        for i, (ours, ref) in enumerate(zip(history, want)):
+            for k in ref:
+                if not math.isclose(ours[k], ref[k], rel_tol=DP_LOSS_TOL["rtol"],
+                                    abs_tol=DP_LOSS_TOL["atol"]):
+                    raise AssertionError(f"{what}: rank {rank} step {i} {k} {ours[k]!r}, "
+                                         f"one process {ref[k]!r}")
+
+
+def host_params(state) -> dict:
+    return {w: {k: v.detach().cpu() for k, v in getattr(state, w).state_dict().items()}
+            for w in ("generator", "discriminator")}
+
+
+def param_deviation(ours: dict, want: dict, initial: dict) -> dict:
+    """How far the networks `ours` are from `want`, both trained from
+    `initial` (host_params' dicts): the worst tensor's ||ours - want|| over
+    ||want - initial|| (delta_rel), the largest elementwise difference, and
+    the elements outside DP_PARAM_TOL."""
+    out = {"delta_rel": 0.0, "max_abs": 0.0, "outside": 0, "elements": 0}
+    for which, tensors in want.items():
+        for k, v in tensors.items():
+            diff = (ours[which][k] - v).abs()
+            out["max_abs"] = max(out["max_abs"], float(diff.max()))
+            out["outside"] += int((diff > DP_PARAM_TOL["atol"] + DP_PARAM_TOL["rtol"] * v.abs()).sum())
+            out["elements"] += v.numel()
+            change = float(torch.linalg.vector_norm(v - initial[which][k]))
+            if change > 0:
+                out["delta_rel"] = max(out["delta_rel"],
+                                       float(torch.linalg.vector_norm(diff)) / change)
+    return out
+
+
+def ranks_bit_equal(fits: list, what: str) -> None:
+    for which in ("generator", "discriminator"):
+        for k, v in fits[0]["state"][which].items():
+            if not all(torch.equal(f["state"][which][k], v) for f in fits[1:]):
+                raise AssertionError(f"{what}: the ranks' {which}.{k} differ")
+
+
+def phase_data_parallel(device, card: str, fid_evaluator) -> dict:
+    """Data parallelism on the card, under deterministic cuDNN and float32
+    parity:
+      1. two Gloo ranks on the one card (parallel/launch.py, each rank a
+         process): a full-width histogram "pallas2" b4 float32 Trainer with
+         data_parallel="on", fit(1) and fit(4) with the L1 report, against
+         the same fits in one process (losses DP_LOSS_TOL; parameters after
+         one step DP_PARAM_TOL and DP_DELTA_REL, after four reported beside
+         the one-process fit under cudnn.benchmark; the ranks' parameters
+         bit-equal; the L1 report; each rank's kernel launches equal to the
+         one process's); the data-parallel generate
+         of 44 sources, dropout on, against generate (DP_GENERATE_ATOL),
+         with a control that must miss it: rank 1 drawing only its own
+         rows' masks (CUDA's draws of 22 and 44 rows agreed on their first
+         22 at these shapes, so the check holds the data-parallel generate
+         equal to generate and does not test that draws of other shapes
+         differ); the sharded
+         FID activations (batch 11 rounded up to 12) against the unsharded
+         ones (FID_ACT_REL of the largest); no rank imports jax;
+      2. NCCL at world size 1 in this process, the production backend:
+         histogram "pallas2" b1024 bfloat16, a 10-step chunk after a 2-step
+         warm-up, data parallel against one device in turns (one, DP, DP,
+         one), and the two gradient all_reduces of a step timed alone
+         with CUDA events;
+      3. NCCL across min(4, count) cards where there are two or more: part
+         1's equality check and part 2's timing with img/s a card; on one
+         card the part is skipped, which is the hardware's limit."""
+    import shutil
+
+    from palette_and_histo_gan_tpu_torch import config_for_variant, set_deterministic_mode
+    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, histogram_kernel, palette_kernel
+    from palette_and_histo_gan_tpu_torch.ops.image import normalize
+    from palette_and_histo_gan_tpu_torch.parallel import distributed
+    from palette_and_histo_gan_tpu_torch.parallel.launch import launch
+    from palette_and_histo_gan_tpu_torch.train.state import create_train_state
+    from palette_and_histo_gan_tpu_torch.train.steps import generate
+    from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
+
+    set_deterministic_mode()
+    root = os.path.join(TEMP_FOLDER, "data_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    fit_config = dict(model="histogram", histogram_impl="pallas2", batch_size=4)
+
+    # the one-process runs on the card, the 4-step one's launches counted,
+    # and the control: the 4 steps under cudnn.benchmark (other algorithms)
+    def one_process(steps: int, folder: str, benchmark: bool = False):
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = not benchmark, benchmark
+        cfg = config_for_variant("histogram", histogram_impl="pallas2", batch_size=4,
+                                 temp_folder=os.path.join(root, folder))
+        t = Trainer(cfg, device, synthetic_datasets(cfg, device))
+        t.fit(steps, update_steps=steps, callbacks=["evaluate_l1"])
+        set_deterministic_mode()
+        return t
+
+    counters = (augment_kernel, histogram_kernel, palette_kernel)
+    for c in counters:
+        c.reset_launches()
+    ref = one_process(DP_STEPS, "one")
+    torch.cuda.synchronize()
+    ref_launches = {k: v for c in counters for k, v in c.launches.items()}
+    ref_cfg, ref_l1 = ref.config, ref.report_l1()
+    ref_one = host_params(one_process(1, "one-step").state)
+    control = param_deviation(host_params(one_process(DP_STEPS, "benchmark", True).state),
+                              host_params(ref.state),
+                              initial := host_params(create_train_state(ref_cfg, device,
+                                                                        ref_cfg.seed)))
+
+    sources = normalize(ref.test_ds.sources.float())
+    gen_state = create_train_state(ref_cfg, device, 0)
+    drop = torch.Generator(device=device)
+    drop.manual_seed(SEED)
+    want = generate(ref_cfg, gen_state.generator, sources, drop)
+    # the control, which the gate must see: rank 1 drawing the masks of its
+    # own 22 rows from the state every rank holds, which gives it rank 0's
+    drop.manual_seed(SEED)
+    naive = generate(ref_cfg, gen_state.generator, sources[22:], drop)
+    naive_err = float((naive - want[22:]).abs().max())
+    if not naive_err > DP_GENERATE_ATOL:
+        raise AssertionError(f"rank 1 drawing its own rows' masks is {naive_err} off generate, "
+                             f"within DP_GENERATE_ATOL {DP_GENERATE_ATOL}: the gate cannot see it")
+    images = torch.from_numpy(fid_sprites(44, SEED + 9))
+    want_acts = fid_evaluator.activations(images).cpu()
+
+    def scenarios(folder: str) -> list:
+        return [
+            ("fit", dict(config=dict(fit_config, temp_folder=os.path.join(folder, "rank{rank}")),
+                         steps=DP_STEPS, update_steps=DP_STEPS, data_seed=SEED,
+                         callbacks=("evaluate_l1",))),
+            ("fit", dict(config=dict(fit_config, temp_folder=os.path.join(folder, "step")),
+                         steps=1, update_steps=1, data_seed=SEED)),
+            ("generate", dict(config=fit_config, sources=[sources.cpu()], dropout_seed=SEED)),
+            ("fid", dict(images=images, input_size=fid_evaluator.input_size,
+                         reference_quirks=fid_evaluator.reference_quirks)),
+        ]
+
+    def check_world(results: list, what: str) -> dict:
+        for rank, rank_results in enumerate(results):
+            for r in rank_results:
+                if "error" in r or r["jax_loaded"]:
+                    raise AssertionError(f"{what}: rank {rank}: {r.get('error', 'imported jax')}")
+        fits, steps1, gens, fids = ([r[i] for r in results] for i in range(4))
+        dp_histories_close([f["history"] for f in fits], ref.history, what)
+        ranks_bit_equal(fits, what)
+        ranks_bit_equal(steps1, what)
+        step1 = param_deviation(steps1[0]["state"], ref_one, initial)
+        if step1["outside"] or not step1["delta_rel"] <= DP_DELTA_REL:
+            raise AssertionError(f"{what}: after one step the parameters are {step1} off")
+        params = param_deviation(fits[0]["state"], host_params(ref.state), initial)
+        for f in fits:
+            if not all(math.isclose(a, b, rel_tol=DP_LOSS_TOL["rtol"], abs_tol=DP_LOSS_TOL["atol"])
+                       for a, b in zip(f["l1"], ref_l1)):
+                raise AssertionError(f"{what}: L1 report {f['l1']}, one process {ref_l1}")
+            if f["launches"] != ref_launches:
+                raise AssertionError(f"{what}: a rank launched {f['launches']}, one process "
+                                     f"{ref_launches}")
+        if [f["writes"] for f in fits] != [True] + [False] * (len(fits) - 1):
+            raise AssertionError(f"{what}: writing ranks {[f['writes'] for f in fits]}")
+        gen_err = max(float((g["outputs"][0] - want.cpu()).abs().max()) for g in gens)
+        if not gen_err <= DP_GENERATE_ATOL:
+            raise AssertionError(f"{what}: the data-parallel generate is {gen_err} off generate")
+        scale = float(want_acts.abs().max())
+        fid_err = max(float((f["activations"] - want_acts).abs().max()) for f in fids)
+        if not (all(f["batch_size"] == 12 for f in fids) and fid_err <= FID_ACT_REL * scale):
+            raise AssertionError(f"{what}: sharded FID activations {fid_err} off (scale {scale})")
+        log("data_parallel", f"{what}: {len(fits)} ranks == one process over {DP_STEPS} steps "
+            f"(last G total {fits[0]['history'][-1]['generator/total_loss']!r} / "
+            f"{ref.history[-1]['generator/total_loss']!r}; parameters after one step: each "
+            f"tensor's change within {step1['delta_rel']:.3e} of the one process's (gate "
+            f"{DP_DELTA_REL}), elementwise at most {step1['max_abs']:.3e} apart, "
+            f"{step1['outside']} of {step1['elements']:,} outside rtol 2e-3 / atol 1e-4; after "
+            f"{DP_STEPS} steps {params['delta_rel']:.3e}, {params['max_abs']:.3e}, "
+            f"{params['outside']} outside, against the one process under cudnn.benchmark "
+            f"{control['delta_rel']:.3e}, {control['max_abs']:.3e}, {control['outside']} outside; "
+            f"ranks bit-equal; L1 {fits[0]['l1']} / {list(ref_l1)}); each rank's launches "
+            f"{fits[0]['launches']} == one process's; generate of 44 with dropout {gen_err:.3e} "
+            f"off generate (rank 1 drawing its own 22 rows' masks: {naive_err:.3e}); sharded FID "
+            f"activations {fid_err:.3e} off (largest {scale:.3e})")
+        return {"launches": fits[0]["launches"], "params_step1": step1, "params": params,
+                "control": control, "generate_err": gen_err,
+                "naive_generate_err": naive_err, "fid_err": fid_err}
+
+    t0 = time.perf_counter()
+    results = launch(DP_RANKS, scenarios(os.path.join(root, "gloo")), device=str(device),
+                     backend="gloo", timeout=600)
+    out["gloo_s"] = time.perf_counter() - t0
+    out["gloo"] = check_world(results, f"part 1, {DP_RANKS} Gloo ranks on {device}")
+    if os.path.exists(os.path.join(root, "gloo", "rank1")):
+        raise AssertionError("rank 1 wrote files")
+
+    # part 2: NCCL at world size 1, timed against one device in this process
+    timed_cfg = dict(compute_dtype="bfloat16", batch_size=1024, histogram_impl="pallas2")
+    distributed.initialize(backend="nccl", device=device)
+    try:
+        trainers = {}
+        for mode in ("off", "on"):
+            cfg = config_for_variant("histogram", data_parallel=mode,
+                                     temp_folder=os.path.join(root, f"nccl-{mode}"), **timed_cfg)
+            trainers[mode] = Trainer(cfg, device, synthetic_datasets(cfg, device))
+            trainers[mode].fit(2, update_steps=2)  # warm-up: cuDNN plans, allocator
+        dp = trainers["on"]
+        if dp.group is None or dp.group.world_size != 1 or \
+                torch.distributed.get_backend() != "nccl":
+            raise AssertionError("part 2 did not train over NCCL at world size 1")
+        times = {"off": [], "on": []}
+        for mode in ("off", "on", "on", "off"):
+            t = trainers[mode]
+            before = t.phase_seconds["train_chunk"]
+            t.fit(10, update_steps=10)
+            times[mode].append(1e3 * (t.phase_seconds["train_chunk"] - before) / 10)
+            check_finite(t.history[-1], f"NCCL part, data_parallel={mode}")
+        grads = [[p.grad for p in m.parameters() if p.grad is not None]
+                 for m in (dp.state.generator, dp.state.discriminator)]
+        numel = [sum(g.numel() for g in gs) for gs in grads]
+        allreduce_ms = cuda_ms(lambda: [dp.group.all_reduce_mean_(gs) for gs in grads], 20)
+    finally:
+        distributed.shutdown()
+    out["nccl1"] = {"single_ms": times["off"], "dp_ms": times["on"], "allreduce_ms": allreduce_ms,
+                    "grad_numel": numel}
+    log("data_parallel", f"part 2, {card}: NCCL at world size 1, histogram pallas2 b1024 bf16, "
+        f"ms/step (10-step chunks in turns) one device {times['off'][0]:.3f}, DP "
+        f"{times['on'][0]:.3f}, DP {times['on'][1]:.3f}, one device {times['off'][1]:.3f}; the "
+        f"step's two gradient all_reduces ({numel[0]:,} + {numel[1]:,} float32) "
+        f"{allreduce_ms:.4f} ms")
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log("data_parallel", f"part 3 skipped: {count} card; NCCL across cards needs two or more")
+        return out
+    world = min(4, count)
+    timing = ("fit", dict(config=dict(model="histogram", temp_folder=os.path.join(
+        root, "nccl-cards-timed", "rank{rank}"), **timed_cfg), steps=10, update_steps=10,
+        data_seed=SEED, warmup_steps=2))
+    t0 = time.perf_counter()
+    results = launch(world, scenarios(os.path.join(root, "nccl-cards")) + [timing],
+                     device="cuda", backend="nccl", timeout=900)
+    out["cards_s"] = time.perf_counter() - t0
+    out["cards"] = check_world([r[:4] for r in results], f"part 3, NCCL over {world} cards")
+    if any("error" in r[4] for r in results):
+        raise AssertionError(f"part 3's timed fit: {[r[4].get('error') for r in results]}")
+    ms = 1e3 * results[0][4]["phase_seconds"]["train_chunk"] / 10
+    out["cards"].update(world=world, ms_per_step=ms,
+                        img_per_s_card=timed_cfg["batch_size"] / world / (ms / 1e3))
+    log("data_parallel", f"part 3, {card}: NCCL over {world} cards, histogram pallas2 b1024 "
+        f"bf16 (global), {ms:.3f} ms/step, {out['cards']['img_per_s_card']:.1f} img/s a card")
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -1382,6 +1667,7 @@ def main() -> int:
     fid_out, fid_evaluator = phase_fid(device, card)
     life, trained, bf16_trainer = phase_lifecycle(device, card, fid_evaluator)
     exp = phase_export(device, card, trained, bf16_trainer)
+    dp = phase_data_parallel(device, card, fid_evaluator)
     experiment_s = phase_run_experiment(device)
     if "jax" in sys.modules:
         raise AssertionError("the port loaded jax")
@@ -1409,6 +1695,11 @@ def main() -> int:
         counts = life["indexed_launches"] if name == "K5" else life["launches"]
         if counts.get(name):
             entry["lifecycle_launches"] = counts[name]
+    # a data-parallel rank's launches in the Gloo part of the DP phase
+    for entry in kernels:
+        name = {"augment_packed": "packed"}.get(entry["name"], entry["name"])
+        if dp["gloo"]["launches"].get(name):
+            entry["dp_rank_launches"] = dp["gloo"]["launches"][name]
     # K3a beside the bound of its products as float32 FMAs
     k3a = next(e for e in kernels if e["name"] == "K3a")
     k3a["bound_f32_fma_ms"] = hist["times"][("K3a fma", 1024)][0]
@@ -1434,7 +1725,15 @@ def main() -> int:
         + f"{life['evaluate_fid_s']:.4f} s a report (b1024 bf16 fit), low-rank {fid_out['fid_lowrank']:.6f} / "
         + f"eigh {fid_out['fid_eigh']:.6f} / scipy {fid_out['fid_scipy']:.6f}"
         + f"; export ms program/eager b16 f32 {exp['f32_b16'][0]:.3f}/{exp['f32_b16'][1]:.3f}, b1024 bf16 "
-        + f"{exp['bf16_b1024'][0]:.3f}/{exp['bf16_b1024'][1]:.3f}; run_experiment {experiment_s:.1f} s"
+        + f"{exp['bf16_b1024'][0]:.3f}/{exp['bf16_b1024'][1]:.3f}"
+        + f"; data parallel: {DP_RANKS} Gloo ranks on the card == one process ({dp['gloo_s']:.1f} s), "
+        + f"generate {dp['gloo']['generate_err']:.2e} off; NCCL world 1 b1024 bf16 pallas2 "
+        + f"{'/'.join(f'{v:.3f}' for v in dp['nccl1']['dp_ms'])} ms/step vs one device "
+        + f"{'/'.join(f'{v:.3f}' for v in dp['nccl1']['single_ms'])}, gradient all_reduces "
+        + f"{dp['nccl1']['allreduce_ms']:.4f} ms a step"
+        + (f"; NCCL over {dp['cards']['world']} cards {dp['cards']['ms_per_step']:.3f} ms/step "
+           f"{dp['cards']['img_per_s_card']:.1f} img/s a card" if "cards" in dp else "")
+        + f"; run_experiment {experiment_s:.1f} s"
         + f"; smoke {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,10 +3,20 @@
     python -m palette_and_histo_gan_tpu_torch.cli --model indexed \
         --steps 8 --update-steps 4 --synthetic
 
-Flags follow palette_and_histo_gan_tpu/cli.py where the port has the
-feature (not yet: `--data-parallel`, ROADMAP.md Queue 1 item 7). It trains
-on the card ("cuda") unless `--device` names another device ("cpu" for the
-CPU). `--callbacks evaluate_fid` reports the train/test FID (eval/fid.py;
+Flags follow palette_and_histo_gan_tpu/cli.py. It trains on the card
+("cuda") unless `--device` names another device ("cpu" for the CPU).
+
+`--data-parallel {auto,on,off}` trains one model over several ranks, one
+process a rank, under torchrun:
+
+    torchrun --standalone --nproc-per-node=4 -m palette_and_histo_gan_tpu_torch.cli \
+        --model histogram --batch-size 1024 --compute-dtype bfloat16 --data-parallel on
+
+`--batch-size` is the global batch, split over the ranks; under torchrun
+`--device cuda` is cuda:LOCAL_RANK, and the ranks join over NCCL (Gloo on
+the CPU). "auto" (the default) takes data parallelism when torchrun starts
+more than one rank; "on" also forms a world of one without torchrun. Only
+rank 0 writes logs, previews, checkpoints and weights. `--callbacks evaluate_fid` reports the train/test FID (eval/fid.py;
 PHG_INCEPTION_WEIGHTS names converted pretrained InceptionV3 weights, else
 the weights are random).
 
@@ -109,6 +119,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--save-weights", action="store_true")
     p.add_argument("--generate-images", action="store_true")
+    p.add_argument(
+        "--data-parallel", choices=["auto", "on", "off"], default="auto",
+        help="data parallelism over torch.distributed ranks (torchrun); "
+        "--batch-size is the global batch",
+    )
     return p
 
 
@@ -125,7 +140,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
         target_direction=DIRECTIONS.index(args.target),
         palette_ordering=args.palette_ordering, epochs=args.epochs,
         batch_size=args.batch_size, seed=args.seed, compute_dtype=args.compute_dtype,
-        histogram_impl=histogram_impl(args),
+        histogram_impl=histogram_impl(args), data_parallel=args.data_parallel,
     )
     for name in ("lambda_l1", "lambda_histogram", "lambda_segmentation", "data_root"):
         if getattr(args, name) is not None:
@@ -165,33 +180,49 @@ def main(argv=None) -> int:
         set_f32_parity_mode()
 
     from .data import loader
+    from .parallel import distributed
     from .train.trainer import Trainer
 
+    device = distributed.rank_device(args.device)
     datasets = None
     if args.synthetic:
         if config.is_indexed:
             datasets = loader.indexed_datasets_from_arrays(
-                *loader.synthetic_indexed_arrays(config, args.seed), args.device,
+                *loader.synthetic_indexed_arrays(config, args.seed), device,
                 config.palette_ordering, config.seed,
             )
         else:
             datasets = loader.datasets_from_arrays(
-                *loader.synthetic_arrays(config, args.seed), args.device
+                *loader.synthetic_arrays(config, args.seed), device
             )
-    trainer = Trainer(config, args.device, datasets=datasets)
+    joined = torch.distributed.is_initialized()
+    try:
+        return train(args, config, Trainer(config, device, datasets=datasets))
+    finally:
+        if not joined:  # leave a process group the trainer formed
+            distributed.shutdown()
+
+
+def train(args: argparse.Namespace, config: Config, trainer) -> int:
+    """Restore or import, fit, then write what the flags ask for."""
     starting_step = 0
     if args.resume:
         starting_step = trainer.restore_latest_checkpoint()
-        print(f"Resumed from step {starting_step}")
+        trainer.say(f"Resumed from step {starting_step}")
     if args.init_generator or args.init_discriminator:
         trainer.import_network_params(args.init_generator, args.init_discriminator)
-        print("Imported converted reference weights")
+        trainer.say("Imported converted reference weights")
     steps = args.steps if args.steps is not None else config.steps
     update_steps = args.update_steps if args.update_steps is not None else config.update_steps
-    print(
+    parallel = "one device"
+    if trainer.group is not None:
+        parallel = (f"data parallel, {torch.distributed.get_backend()} x "
+                    f"{trainer.group.world_size} ranks, batch "
+                    f"{config.batch_size // trainer.group.world_size} a rank")
+    trainer.say(
         f"Starting training for {config.model} ({config.architecture_name}) on "
         f"{trainer.device}: {steps} steps, updating every {update_steps}, "
-        f"histogram_impl {config.histogram_impl}..."
+        f"histogram_impl {config.histogram_impl}, {parallel}..."
     )
     trainer.fit(steps - starting_step, update_steps, callbacks=list(args.callbacks),
                 starting_step=starting_step)

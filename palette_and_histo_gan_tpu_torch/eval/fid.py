@@ -198,14 +198,23 @@ class FidEvaluator:
 
     Images are (N, H, W, C) arrays or tensors (C = 3 or 4) or directories of
     PNGs. PHG_INCEPTION_WEIGHTS names converted pretrained weights
-    (models/inception.py); unset, the weights are random."""
+    (models/inception.py); unset, the weights are random.
+
+    With `group` (parallel/mesh.py::DataGroup; every rank calls with the
+    same images), batch_size is rounded up to a multiple of the world size,
+    each rank forwards its rows of every chunk, and the activations are
+    gathered in one all_reduce. They are per image, so their values do not
+    change (JAX: FidEvaluator(mesh=))."""
 
     def __init__(self, batch_size: int = 11, reference_quirks: bool = True,
-                 input_size: int = 299, device: torch.device | str = "cuda"):
+                 input_size: int = 299, device: torch.device | str = "cuda", group=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' asked for, but PyTorch sees no CUDA device")
         self.model = inception.load_params(input_size, self.device)
+        self.group = group
+        if group is not None:
+            batch_size = -(-batch_size // group.world_size) * group.world_size
         self.batch_size = batch_size
         self.input_size = input_size
         self.reference_quirks = reference_quirks
@@ -213,19 +222,24 @@ class FidEvaluator:
     @torch.inference_mode()
     def activations(self, images) -> torch.Tensor:
         """(N, 2048) float32 pooled features, forwarded in chunks of
-        batch_size; the last chunk is zero-padded and the padding dropped."""
+        batch_size; the last chunk is zero-padded and the padding dropped.
+        Under a group each rank forwards its rows of every chunk."""
         images = torch.as_tensor(images).to(self.device)
-        b = self.batch_size
+        n, b = images.shape[0], self.batch_size
+        rows = slice(None) if self.group is None else self.group.batch_slice(b)
         out = []
         with float32_exact():
-            for i in range(0, images.shape[0], b):
+            for i in range(0, n, b):
                 chunk = images[i:i + b]
-                n = chunk.shape[0]
-                if n < b:
-                    chunk = torch.cat([chunk, chunk.new_zeros((b - n,) + chunk.shape[1:])])
-                scaled = scale_images_nn(chunk.float(), self.input_size, self.reference_quirks)
-                out.append(self.model(preprocess_input(scaled))[:n])
-        return torch.cat(out)
+                if chunk.shape[0] < b:
+                    chunk = torch.cat([chunk, chunk.new_zeros((b - chunk.shape[0],) + chunk.shape[1:])])
+                scaled = scale_images_nn(chunk[rows].float(), self.input_size,
+                                         self.reference_quirks)
+                out.append(self.model(preprocess_input(scaled)))
+        acts = torch.stack(out)  # (chunks, rows, 2048)
+        if self.group is not None:
+            acts = self.group.gather_rows(acts.transpose(0, 1), b).transpose(0, 1)
+        return acts.reshape(-1, acts.shape[-1])[:n]
 
     def compare(self, images1, images2, method: str = "auto") -> float:
         """FID between two image sets (frechet_inception_distance.py:79-80).

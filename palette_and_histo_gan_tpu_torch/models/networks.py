@@ -15,6 +15,10 @@ networks.py:7-98):
 
 The public forwards take and return NHWC like the JAX package; inside, the
 tensors are NCHW views of the NHWC memory (channels-last strides).
+Dropout draws its masks from an explicit `torch.Generator`, or from a
+`DropoutDraw`, which also says which rows of a larger draw a call keeps:
+a data-parallel rank draws the whole batch's masks and keeps its own rows,
+so that N ranks draw what one process draws (parallel/dp.py).
 Parameters stay float32; `dtype` (float32 or bfloat16) is the
 compute type of the convolutions and activations, as flax's `dtype=` is.
 Kernels are initialized N(0, 0.02) from an explicit generator.
@@ -26,6 +30,7 @@ subpixel transposed conv) compute the same function and are not ported.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import torch
@@ -36,6 +41,32 @@ LEAKY_RELU_SLOPE = 0.3  # keras LeakyReLU default
 INSTANCE_NORM_EPS = 1e-3  # tensorflow_addons InstanceNormalization default
 CONV_INIT_STD = 0.02
 DROPOUT_RATE = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class DropoutDraw:
+    """Where a dropout mask comes from: `generator` draws a mask of `rows`
+    rows (None: the caller's batch) and the call keeps rows `first_row`
+    onward, as many as its batch has; rows past the draw keep every unit.
+
+    Drawing the exact shape one process draws, then slicing, is what makes
+    a rank's rows equal one process's on the card: CUDA's Philox values
+    depend on the launch's grid, which depends on the draw's size, so a
+    draw of another shape need not be a prefix or a slice of it. The
+    generator advances as one process's does."""
+
+    generator: torch.Generator
+    rows: int | None = None
+    first_row: int = 0
+
+    def keep_mask(self, shape, device) -> torch.Tensor:
+        rows = shape[0] if self.rows is None else self.rows
+        u = torch.rand((rows, *shape[1:]), generator=self.generator, device=device)
+        keep = u[self.first_row:self.first_row + shape[0]] < (1.0 - DROPOUT_RATE)
+        missing = shape[0] - keep.shape[0]
+        if missing:
+            keep = torch.cat([keep, keep.new_ones((missing, *shape[1:]))])
+        return keep
 
 
 class InstanceNorm(nn.Module):
@@ -101,7 +132,7 @@ class UpBlock(nn.Module):
         self.weight = nn.Parameter(torch.empty(in_channels, filters, 4, 4))
         self.norm = InstanceNorm(filters)
 
-    def forward(self, x, generator: torch.Generator | None = None,
+    def forward(self, x, generator: torch.Generator | DropoutDraw | None = None,
                 deterministic: bool = False) -> torch.Tensor:
         x = F.conv_transpose2d(
             x.to(self.dtype), self.weight.to(self.dtype), stride=2, padding=1
@@ -109,11 +140,11 @@ class UpBlock(nn.Module):
         x = self.norm(x)
         if self.apply_dropout and not deterministic:
             if generator is None:
-                raise ValueError("dropout needs an explicit torch.Generator")
+                raise ValueError("dropout needs an explicit torch.Generator or DropoutDraw")
+            if isinstance(generator, torch.Generator):
+                generator = DropoutDraw(generator)
             # flax nn.Dropout: keep with probability 1 - rate, scale by 1/keep
-            keep = torch.rand(x.shape, generator=generator, device=x.device) < (
-                1.0 - DROPOUT_RATE
-            )
+            keep = generator.keep_mask(x.shape, x.device)
             x = torch.where(keep, x / (1.0 - DROPOUT_RATE), torch.zeros_like(x))
         return F.relu(x)
 
@@ -184,7 +215,7 @@ class UnetGenerator(nn.Module):
             cin = f + skip_widths[i]
         self.head = HeadConv(cin, output_channels, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+    def forward(self, x: torch.Tensor, generator: torch.Generator | DropoutDraw | None = None,
                 deterministic: bool = False, logits: bool = False) -> torch.Tensor:
         """(B, 64, 64, C) NHWC -> (B, 64, 64, out) NHWC: float32 after tanh
         or softmax; the head's output in the compute dtype under "linear"

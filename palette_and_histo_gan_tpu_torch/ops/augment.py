@@ -8,8 +8,9 @@ translation with zero fill; otherwise it passes unchanged. The hue algebra
 is the TPU kernel's (`augment_pallas.py::_hue_rotate_planar`): one
 reciprocal, saturation never formed, hue kept in the [0, 6) sextant domain.
 
-`augment_with_draws` takes the draws as tensors and sends CUDA tensors to
-the CUDA kernel (`ops/augment_kernel.py`), CPU tensors to `augment_plain`.
+`augment_batch_sharded` draws for the global batch and augments this
+rank's rows of it (all of them in one process). `augment_with_draws` takes the draws as
+tensors and sends CUDA tensors to the CUDA kernel (`ops/augment_kernel.py`), CPU tensors to `augment_plain`.
 A CUDA batch never reaches the plain version.
 """
 
@@ -133,13 +134,19 @@ def augment_with_draws(
     return augment_plain(src, tgt, delta, sy, sx, keep, **kw)
 
 
-def augment_batch(
-    src, tgt, generator: torch.Generator, prob: float = 0.8, *,
-    normalize_out=False, out_dtype=torch.float32,
+def augment_batch_sharded(
+    src, tgt, generator: torch.Generator, prob: float = 0.8, *, global_batch: int,
+    first_row: int = 0, normalize_out=False, out_dtype=torch.float32,
 ):
-    """Draw from `generator` (on the batch's device) and augment the pair
-    batch: augment_pallas.py::augment_batch_pallas(_packed)'s counterpart."""
-    delta, sy, sx, keep = draw_params(generator, src.shape[0], prob)
+    """Draw from `generator` (on the batch's device) for a batch of
+    `global_batch` pairs and augment its rows `first_row` onward, as many
+    as `src` has: augment_pallas.py::augment_batch_pallas(_packed)'s
+    counterpart when they are the whole batch (`global_batch` = len(src)),
+    and augment_batch_pallas_sharded's on a data-parallel rank's rows. The
+    generator advances as one process's, and the augmentation is per pair,
+    so a rank's rows equal one process's."""
+    rows = slice(first_row, first_row + src.shape[0])
+    draws = [d[rows] for d in draw_params(generator, global_batch, prob)]
     return augment_with_draws(
-        src, tgt, delta, sy, sx, keep, normalize_out=normalize_out, out_dtype=out_dtype
+        src, tgt, *draws, normalize_out=normalize_out, out_dtype=out_dtype
     )

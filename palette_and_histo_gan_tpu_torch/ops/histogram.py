@@ -7,7 +7,8 @@ XLA code and not a TPU kernel, so this is plain PyTorch:
     :143-185): per channel three products, each consumed by one
     elementwise-and-reduce chain; `bwd="pallas"` swaps in kernel K4c
     (ops/histogram_pallas3.py), as JAX's `_histogram_core_pallas_bwd`;
-  * `hellinger_loss` and `l1_loss` (:517-530).
+  * `hellinger_loss` and `l1_loss` (:517-530); the Hellinger loss also
+    over the ranks of a data-parallel group.
 
 Formulas (image in [-1, 1], rescaled to [0, 1], alpha dropped):
   Iy = sqrt(R^2 + G^2 + B^2 + eps)
@@ -162,10 +163,22 @@ def calculate_rgbuv_histogram(
     return histograms / torch.sum(histograms, dim=(1, 2, 3), keepdim=True)
 
 
-def hellinger_loss(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
-    """(1/sqrt(2)) * ||sqrt(H_pred) - sqrt(H_true)||_2 / B."""
-    dist = torch.sqrt(torch.sum(torch.square(torch.sqrt(y_pred) - torch.sqrt(y_true))))
-    return dist / math.sqrt(2.0) / y_true.shape[0]
+def hellinger_loss(y_true: torch.Tensor, y_pred: torch.Tensor, group=None) -> torch.Tensor:
+    """(1/sqrt(2)) * ||sqrt(H_pred) - sqrt(H_true)||_2 / B.
+
+    One norm over the whole batch, not a mean of per-image terms. Under
+    data parallelism (`group`, a parallel.mesh.DataGroup, each rank holding
+    its rows) the sum of squares is summed over the ranks before the root
+    and B is the global batch, so every rank holds one process's value; a
+    rank's own norm over its B/N rows would read about sqrt(N) times it.
+    The sum's backward hands each rank N times the cotangent, so that the
+    gradients' mean over the ranks is one process's (parallel/mesh.py)."""
+    squares = torch.sum(torch.square(torch.sqrt(y_pred) - torch.sqrt(y_true)))
+    batch = y_true.shape[0]
+    if group is not None:
+        squares = group.sum_across(squares)
+        batch *= group.world_size
+    return torch.sqrt(squares) / math.sqrt(2.0) / batch
 
 
 def l1_loss(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,10 @@ Counterpart of palette_and_histo_gan_tpu/train/checkpoint.py, built on
   - `save_params` / `load_params`: models/py/<which>/<arch>/<model>/
     params.pt, the module's state_dict, beside the JAX package's
     params.msgpack in the same folder.
+Under data parallelism (train/trainer.py) only rank 0 has an AsyncSaver
+and writes, and the final flush ends in a barrier, so that no rank returns
+before the file exists; a restore reads the file on every rank and then
+replicates rank 0's state (parallel/mesh.py::replicate_state).
 """
 
 from __future__ import annotations
@@ -182,19 +186,23 @@ def _export_path(config: Config, which: str) -> str:
     return os.path.join("models", "py", which, config.architecture_name, config.model)
 
 
+def params_path(config: Config, which: str) -> str:
+    """models/py/<which>/<arch>/<model>/params.pt."""
+    return os.path.join(_export_path(config, which), "params.pt")
+
+
 def save_params(config: Config, which: str, module: nn.Module) -> str:
     """Write a network's state_dict (which: 'generator' | 'discriminator')
     as params.pt; returns the path."""
-    path = _export_path(config, which)
-    os.makedirs(path, exist_ok=True)
-    out = os.path.join(path, "params.pt")
+    out = params_path(config, which)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, out)
     return out
 
 
 def load_params(config: Config, which: str, module: nn.Module) -> None:
     """Load a network's params.pt into `module` in place (strict)."""
-    path = os.path.join(_export_path(config, which), "params.pt")
+    path = params_path(config, which)
     if not os.path.exists(path):
         raise FileNotFoundError(f"no {which} weights at {os.path.abspath(path)}")
     module.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))

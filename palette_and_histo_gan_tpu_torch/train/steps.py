@@ -13,6 +13,15 @@ backpropagates into the discriminator's parameters only, and then applies
 both Adam updates, so both gradients see the parameters of before the
 step. Metric names are the JAX package's `generator/*` and
 `discriminator/*`.
+
+Data parallelism passes a `group` (parallel/mesh.py::DataGroup) down, as
+the JAX steps take `mesh=`: the step then runs on this rank's rows of the
+global batch, draws the augmentation and the dropout masks for the whole
+batch and keeps its rows, sums the Hellinger loss over the ranks, and
+averages each network's gradients over the ranks (one flat all_reduce a
+network) before the two Adam updates; the chunk gathers this rank's rows
+of the global batch and averages the stacked metrics over the ranks once
+a chunk.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from ..ops import augment as augment_ops
 from ..ops import histogram as hist_ops
 from ..ops.histogram_pallas import calculate_rgbuv_histogram_pallas
 from ..ops.histogram_pallas2 import calculate_rgbuv_histogram_pallas2
+from ..models.networks import DropoutDraw
 from ..ops.image import normalize
 from .losses import (
     bce_with_logits,
@@ -59,13 +69,31 @@ def step_wants_packed(config: Config) -> bool:
     return config.uses_augmentation
 
 
-def _prepare_batch(config: Config, state: TrainState, source, target):
+def _global_rows(group, local_b: int) -> tuple[int, int]:
+    """(global batch, this rank's first row) of a rank holding local_b rows."""
+    if group is None:
+        return local_b, 0
+    return local_b * group.world_size, local_b * group.rank
+
+
+def _dropout(config: Config, state: TrainState, group, local_b: int):
+    """The dropout masks' source: the state's generator, drawing the whole
+    batch's masks under data parallelism."""
+    if group is None:
+        return state.dropout_generator
+    rows, first = _global_rows(group, local_b)
+    return DropoutDraw(state.dropout_generator, rows, first)
+
+
+def _prepare_batch(config: Config, state: TrainState, source, target, group=None):
     """Raw [0, 255] batch -> normalized (augmented) [-1, 1] pair."""
     if config.uses_augmentation:
         # normalize folded into the augmentation's write; in bfloat16 mode
         # it writes bfloat16, as every consumer casts to it anyway
-        return augment_ops.augment_batch(
+        rows, first = _global_rows(group, source.shape[0])
+        return augment_ops.augment_batch_sharded(
             source, target, state.aug_generator, config.augment_probability,
+            global_batch=rows, first_row=first,
             normalize_out=True, out_dtype=compute_dtype(config),
         )
     if source.dtype == torch.int32:
@@ -90,16 +118,26 @@ def histogram_fn(config: Config) -> Callable:
     return partial(hist_ops.calculate_rgbuv_histogram, bwd=config.histogram_bwd)
 
 
-def rgba_train_step(config: Config, state: TrainState, source, target) -> dict:
+def _average_gradients(group, *modules) -> None:
+    """Each module's gradients averaged over the ranks, one flat all_reduce
+    a module."""
+    if group is None:
+        return
+    for module in modules:
+        group.all_reduce_mean_([p.grad for p in module.parameters() if p.grad is not None])
+
+
+def rgba_train_step(config: Config, state: TrainState, source, target, group=None) -> dict:
     """One optimization step on a raw [0, 255] RGBA batch (uint8, float32
-    or packed int32), in place on `state`. Returns detached 0-dim metrics."""
-    source, target = _prepare_batch(config, state, source, target)
+    or packed int32), in place on `state`; with `group`, on this rank's
+    rows of the global batch. Returns detached 0-dim metrics (this rank's
+    under data parallelism)."""
+    dropout = _dropout(config, state, group, source.shape[0])
+    source, target = _prepare_batch(config, state, source, target, group)
     gen, disc = state.generator, state.discriminator
     dtype = compute_dtype(config)
 
-    fake = gen(
-        source, state.dropout_generator, deterministic=config.deterministic_dropout
-    )
+    fake = gen(source, dropout, deterministic=config.deterministic_dropout)
     g_metrics = generator_loss(disc(fake, source), fake, target, config.effective_lambda_l1)
     if config.model == "histogram":
         # two separate histogram calls, real and fake, as the JAX step runs them
@@ -110,7 +148,7 @@ def rgba_train_step(config: Config, state: TrainState, source, target) -> dict:
         hist_fn = histogram_fn(config)
         real_hist = hist_fn(target, **kw)
         fake_hist = hist_fn(fake, **kw)
-        h_loss = hist_ops.hellinger_loss(real_hist, fake_hist)
+        h_loss = hist_ops.hellinger_loss(real_hist, fake_hist, group)
         g_metrics["histogram_loss"] = h_loss
         g_metrics["total_loss"] = g_metrics["total_loss"] + config.lambda_histogram * h_loss
 
@@ -123,6 +161,7 @@ def rgba_train_step(config: Config, state: TrainState, source, target) -> dict:
     d_metrics = discriminator_loss(disc(target, source), disc(fake, source))
     d_metrics["total_loss"].backward(inputs=list(disc.parameters()))
 
+    _average_gradients(group, gen, disc)
     state.g_optimizer.step()
     state.d_optimizer.step()
     state.step += 1
@@ -131,7 +170,8 @@ def rgba_train_step(config: Config, state: TrainState, source, target) -> dict:
     return metrics
 
 
-def indexed_train_step(config: Config, state: TrainState, source_idx, target_idx) -> dict:
+def indexed_train_step(config: Config, state: TrainState, source_idx, target_idx,
+                       group=None) -> dict:
     """One optimization step on int32 (B, 64, 64, 1) palette-index maps, in
     place on `state`. Returns detached 0-dim metrics.
 
@@ -148,8 +188,8 @@ def indexed_train_step(config: Config, state: TrainState, source_idx, target_idx
     labels = target_idx[..., 0]
 
     logits = gen(
-        source, state.dropout_generator, deterministic=config.deterministic_dropout,
-        logits=True,
+        source, _dropout(config, state, group, source.shape[0]),
+        deterministic=config.deterministic_dropout, logits=True,
     )
     fake = torch.argmax(logits, dim=-1, keepdim=True).float()
     with torch.no_grad():
@@ -176,6 +216,7 @@ def indexed_train_step(config: Config, state: TrainState, source_idx, target_idx
     d_metrics = discriminator_loss(real_pred, fake_pred)
     d_metrics["total_loss"].backward(inputs=list(disc.parameters()))
 
+    _average_gradients(group, gen, disc)
     state.g_optimizer.step()
     state.d_optimizer.step()
     state.step += 1
@@ -189,17 +230,33 @@ def step_function(config: Config) -> Callable:
     return indexed_train_step if config.is_indexed else rgba_train_step
 
 
-def make_train_step(config: Config) -> Callable:
-    """(state, source, target) -> metrics, updating `state` in place."""
+def _mean_over_ranks(metrics: list[dict], group) -> dict:
+    """The metrics of the steps stacked, (steps,) each, and under data
+    parallelism averaged over the ranks in one all_reduce."""
+    names = list(metrics[0])
+    stacked = torch.stack([torch.stack([m[k] for m in metrics]) for k in names])
+    if group is not None:
+        group.all_reduce_mean_([stacked])
+    return dict(zip(names, stacked))
+
+
+def make_train_step(config: Config, group=None) -> Callable:
+    """(state, source, target) -> metrics, updating `state` in place.
+    `group` is parallel/dp.py::make_dp_train_step's, which is how data
+    parallelism reaches this step."""
     step_fn = step_function(config)
 
     def train_step(state: TrainState, source, target) -> dict:
-        return step_fn(config, state, source, target)
+        metrics = step_fn(config, state, source, target, group)
+        if group is None:
+            return metrics
+        return {k: v[0] for k, v in _mean_over_ranks([metrics], group).items()}
 
     return train_step
 
 
-def make_train_chunk(config: Config, dataset_size: int, data_seed: int) -> Callable:
+def make_train_chunk(config: Config, dataset_size: int, data_seed: int,
+                     group=None) -> Callable:
     """(state, (sources, targets), num_steps) -> metrics stacked over the
     steps, still on the device.
 
@@ -207,9 +264,12 @@ def make_train_chunk(config: Config, dataset_size: int, data_seed: int) -> Calla
     (data.loader.batch_indices) at the state's global step and gathers it
     from the device-resident splits: uint8 RGBA, packed to one word a pixel
     when the step takes packed pixels, or the indexed variant's int32 maps
-    as they are. The caller fetches the stacked metrics once per chunk."""
+    as they are. The caller fetches the stacked metrics once per chunk.
+    `group` is parallel/dp.py::make_dp_train_chunk's, which is how data
+    parallelism reaches this chunk."""
     packed = step_wants_packed(config)
     step_fn = step_function(config)
+    rows = slice(None) if group is None else group.batch_slice(config.batch_size)
 
     def train_chunk(state: TrainState, dataset, num_steps: int) -> dict:
         sources, targets = dataset
@@ -219,16 +279,16 @@ def make_train_chunk(config: Config, dataset_size: int, data_seed: int) -> Calla
         for _ in range(num_steps):
             idx = batch_indices(
                 data_seed, state.step, dataset_size, config.batch_size, sources.device
-            )
-            history.append(step_fn(config, state, sources[idx], targets[idx]))
-        return {k: torch.stack([m[k] for m in history]) for k in history[0]}
+            )[rows]
+            history.append(step_fn(config, state, sources[idx], targets[idx], group))
+        return _mean_over_ranks(history, group)
 
     return train_chunk
 
 
 @torch.no_grad()
 def generate(config: Config, generator, source: torch.Tensor,
-             dropout_generator: torch.Generator) -> torch.Tensor:
+             dropout_generator: torch.Generator | DropoutDraw) -> torch.Tensor:
     """The generator at inference, dropout active as the reference runs it:
     a normalized RGBA source -> the [-1, 1] fake; an int32 index map ->
     the int32 argmax map of the logits, taken in the compute dtype."""

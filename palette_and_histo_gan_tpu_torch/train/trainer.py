@@ -23,7 +23,15 @@ a resumed run, which previews at its starting step, equals the
 uninterrupted one. The evaluations seed theirs as the JAX Trainer does: L1
 seed + 2, FID seed + 3.
 
-Not ported yet (ROADMAP.md, Queue 1): data parallelism (item 7).
+Data parallelism (`config.data_parallel`, JAX: the Trainer's mesh): under
+"auto" when a process group of more than one rank exists or torchrun's
+WORLD_SIZE is above 1, under "on" always (a world of one included),
+never under "off". `config.batch_size` is then the global batch, split
+over the ranks (parallel/dp.py); every rank holds the whole datasets,
+runs the chunks, the previews and the L1 and FID reports, which hold
+collectives, and only rank 0 writes: TensorBoard events, PNGs, weight
+files, checkpoints and the console. Restores and weight loads read the
+file on every rank and end with rank 0's state on all of them.
 """
 
 from __future__ import annotations
@@ -43,6 +51,9 @@ from ..eval.fid import FidEvaluator
 from ..models import convert
 from ..ops.image import normalize
 from ..ops.palette import indexed_to_rgba
+from ..parallel import distributed
+from ..parallel.dp import make_dp_generate_fn, make_dp_train_chunk
+from ..parallel.mesh import DataGroup, make_group, replicate_state
 from ..utils import logging as log_utils
 from ..utils import visualization as viz
 from ..utils.io import delete_folder, ensure_folder_structure, seconds_to_human_readable
@@ -56,15 +67,59 @@ PREVIEW_STREAM = 6
 
 
 def show_eta(training_start_time, step_start_time, current_step, starting_step,
-             total_steps, update_steps):
-    """ETA printer (reference side2side_model.py:14-25)."""
+             total_steps, update_steps, say=print):
+    """ETA printer (reference side2side_model.py:14-25), through `say`."""
     now = time.time()
     elapsed = now - training_start_time
     steps_so_far = float(current_step - starting_step)
     eta = elapsed / (steps_so_far + 1.0) * (total_steps - steps_so_far)
-    print(f"Time since start: {seconds_to_human_readable(elapsed)}")
-    print(f"Estimated time to finish: {seconds_to_human_readable(eta)}")
-    print(f"Last {update_steps} steps took: {now - step_start_time:.2f}s\n")
+    say(f"Time since start: {seconds_to_human_readable(elapsed)}")
+    say(f"Estimated time to finish: {seconds_to_human_readable(eta)}")
+    say(f"Last {update_steps} steps took: {now - step_start_time:.2f}s\n")
+
+
+def data_group(config: Config, device: torch.device) -> DataGroup | None:
+    """The data-parallel group `config.data_parallel` asks for on `device`,
+    the process group formed first where needed; None for one device.
+    With more than one rank the global batch must split evenly."""
+    mode = config.data_parallel
+    if mode == "off":
+        return None
+    if mode == "auto":
+        world = (torch.distributed.get_world_size() if torch.distributed.is_initialized()
+                 else distributed.torchrun_world_size())
+        if world <= 1:
+            return None
+    group = make_group(device)
+    if config.batch_size % group.world_size:
+        raise ValueError(
+            f"batch_size {config.batch_size} (the global batch) does not split over "
+            f"{group.world_size} data-parallel ranks"
+        )
+    return group
+
+
+class _NullWriter:
+    """The metrics writer of a rank that writes nothing (ranks above 0)."""
+
+    def scalars(self, *args) -> None:
+        pass
+
+    def image(self, *args) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+
+class _NullSaver:
+    """The checkpoint saver of a rank that writes nothing (ranks above 0)."""
+
+    def save(self, state) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
 
 
 def preview_seed(seed: int, step: int) -> int:
@@ -75,7 +130,8 @@ def preview_seed(seed: int, step: int) -> int:
 
 
 class Trainer:
-    """Training loop of any variant on one explicit device.
+    """Training loop of any variant on one explicit device, or on this
+    rank's device of a data-parallel group (`data_group`).
 
     `datasets` is a (train, test) pair already on `device`: RgbaDatasets
     (data.loader.datasets_from_arrays) or, for the indexed variant,
@@ -89,13 +145,21 @@ class Trainer:
 
     def __init__(self, config: Config, device: torch.device | str,
                  datasets: tuple | None = None, fid_evaluator: FidEvaluator | None = None):
-        self.device = torch.device(device)
+        self.device = distributed.rank_device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("device 'cuda' asked for, but PyTorch sees no CUDA device")
             if self.device.index is None:  # tensors report "cuda:N", never "cuda"
                 self.device = torch.device("cuda", torch.cuda.current_device())
         check_supported(config, self.device)
+        self.group = data_group(config, self.device)
+        if self.group is not None and self.group.device != self.device:
+            raise ValueError(f"the trainer's device {self.device} is not its rank's "
+                             f"{self.group.device}")
+        # rank 0 (or the one process) writes events, files and the console:
+        # through say, _written, the writer and the saver, which are null
+        # objects on the other ranks
+        self.writes = self.group is None or self.group.rank == 0
         self.config = config
         if datasets is None:
             make = make_indexed_datasets if config.is_indexed else make_rgba_datasets
@@ -110,14 +174,26 @@ class Trainer:
                 raise ValueError(f"dataset on {ds.sources.device}, trainer on {self.device}")
 
         self.state: TrainState = create_train_state(config, self.device, config.seed)
-        print(f"Generator: unet-gen with {param_count(self.state.generator):,} parameters")
-        print(
+        self.say(f"Generator: unet-gen with {param_count(self.state.generator):,} parameters")
+        self.say(
             f"Discriminator: patch-disc with "
             f"{param_count(self.state.discriminator):,} parameters"
         )
-        self.train_chunk = make_train_chunk(config, self.train_ds.n, config.seed)
+        if self.group is None:
+            self.train_chunk = make_train_chunk(config, self.train_ds.n, config.seed)
+            self.generate_fn = generate
+        else:
+            replicate_state(self.group, self.state)
+            self.train_chunk = make_dp_train_chunk(config, self.group, self.train_ds.n,
+                                                   config.seed)
+            self.generate_fn = make_dp_generate_fn(self.group)
+            self.say(
+                f"Data parallel over {self.group.world_size} ranks "
+                f"({torch.distributed.get_backend()}): batch {config.batch_size} -> "
+                f"{config.batch_size // self.group.world_size} a rank"
+            )
         self.manager = ckpt.make_manager(config)
-        self.saver = ckpt.AsyncSaver(self.manager)
+        self.saver = ckpt.AsyncSaver(self.manager) if self.writes else _NullSaver()
         self.fid = fid_evaluator
         self.writer = None
         self.now_string = None
@@ -135,6 +211,28 @@ class Trainer:
                 self.phase_seconds.get(name, 0.0) + time.perf_counter() - t0
             )
 
+    def say(self, msg: str) -> None:
+        """Print on the writing rank."""
+        if self.writes:
+            print(msg)
+
+    def _written(self, path: str | None) -> str | None:
+        """`path` on the writing rank; None, which writes nothing, on the
+        others."""
+        return path if self.writes else None
+
+    def _replicate(self) -> None:
+        """Rank 0's state on every rank (a no-op on one device)."""
+        if self.group is not None:
+            replicate_state(self.group, self.state)
+
+    def _flush_checkpoints(self) -> None:
+        """Land every checkpoint write; under data parallelism no rank
+        returns before rank 0's have landed."""
+        self.saver.flush()
+        if self.group is not None:
+            self.group.barrier()
+
     def _generator(self, seed: int) -> torch.Generator:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
@@ -150,7 +248,8 @@ class Trainer:
         if unsupported:
             raise ValueError(f"unknown callbacks {unsupported}; supported: {SUPPORTED_CALLBACKS}")
         if starting_step == 0 or self.writer is None:
-            self.writer, self.now_string = log_utils.make_writer(config)
+            self.writer, self.now_string = (log_utils.make_writer(config) if self.writes
+                                            else (_NullWriter(), None))
         try:
             self._do_fit(steps, update_steps, callbacks, starting_step)
         finally:
@@ -187,7 +286,7 @@ class Trainer:
                     self.writer.scalars(row, log_utils.quantize_step(step, update_steps))
 
             show_eta(training_start, step_start, current_step, starting_step,
-                     steps, update_steps)
+                     steps, update_steps, self.say)
             step_start = time.time()
             self._update_visualization(examples, current_step, update_steps, callbacks)
 
@@ -197,7 +296,7 @@ class Trainer:
                     self.saver.save(self.state)
 
         with self._phase("checkpoint"):
-            self.saver.flush()
+            self._flush_checkpoints()
 
         total = sum(self.phase_seconds.values())
         if total > 0:
@@ -205,7 +304,7 @@ class Trainer:
                 f"{k} {v:.1f}s ({100 * v / total:.0f}%)"
                 for k, v in sorted(self.phase_seconds.items(), key=lambda kv: -kv[1])
             )
-            print(f"Phase breakdown: {breakdown}")
+            self.say(f"Phase breakdown: {breakdown}")
 
     # ----------------------------------------------------------------------
     def _update_visualization(self, examples, step, update_steps, callbacks):
@@ -215,13 +314,13 @@ class Trainer:
             config.temp_folder, "logs", config.architecture_name, config.model,
             self.now_string or "run", f"step_{step:06d}.png",
         )
-        print(f"Previewing images generated at step {step} (3 test + 3 train)...")
+        self.say(f"Previewing images generated at step {step} (3 test + 3 train)...")
         with self._phase("preview"):
             image = self.preview_generated_images(examples, save_name, step)
             self.writer.image(save_name, image, qstep)
 
         if "show_discriminator_output" in callbacks:
-            print("Showing discriminator output patches (2 test + 2 train)...")
+            self.say("Showing discriminator output patches (2 test + 2 train)...")
             with self._phase("discriminator_debug"):
                 run_dir = os.path.dirname(save_name)
                 for split in ("test", "train"):
@@ -232,11 +331,11 @@ class Trainer:
         if "evaluate_l1" in callbacks:
             with self._phase("evaluate_l1"):
                 l1_train, l1_test = self.report_l1(step=qstep)
-            print(f"L1: {l1_train:.5f} / {l1_test:.5f} (train/test)")
+            self.say(f"L1: {l1_train:.5f} / {l1_test:.5f} (train/test)")
         if "evaluate_fid" in callbacks:
             with self._phase("evaluate_fid"):
                 fid_train, fid_test = self.report_fid(step=qstep)
-            print(f"FID: {fid_train:.3f} / {fid_test:.3f} (train/test)")
+            self.say(f"FID: {fid_train:.3f} / {fid_test:.3f} (train/test)")
 
     def _example(self, ds, i: int) -> tuple:
         if self.config.is_indexed:
@@ -259,20 +358,21 @@ class Trainer:
     def preview_generated_images(self, examples, save_name=None, step=None) -> np.ndarray:
         """The [Input, Target, Generated] grid of `examples` (tuples from
         select_examples_for_visualization) as HWC uint8, written to
-        `save_name` when one is given."""
+        `save_name` when one is given (on the writing rank)."""
         config = self.config
+        save_name = self._written(save_name)
         drop = self._generator(preview_seed(config.seed, step or 0))
         src, tgt = (torch.stack([e[k] for e in examples]) for k in (0, 1))
         if config.is_indexed:
             palettes = torch.stack([e[2] for e in examples])
-            fake = generate(config, self.state.generator, src, drop)
+            fake = self.generate_fn(config, self.state.generator, src, drop)
             sources, targets, generated = (
                 indexed_to_rgba(x, palettes).cpu().numpy() for x in (src, tgt, fake)
             )
             return viz.preview_grid(sources, targets, generated, save_name, step,
                                     values_in_unit_range=True)
         src, tgt = normalize(src.float()), normalize(tgt.float())
-        fake = generate(config, self.state.generator, src, drop)
+        fake = self.generate_fn(config, self.state.generator, src, drop)
         return viz.preview_grid(src.cpu().numpy(), tgt.cpu().numpy(),
                                 fake.float().cpu().numpy(), save_name, step)
 
@@ -292,24 +392,24 @@ class Trainer:
             drop = self._generator(config.seed + 1)
             src, tgt = ds.sources[i:i + 1], ds.targets[i:i + 1]
             if config.is_indexed:
-                fake = generate(config, G, src, drop)
+                fake = self.generate_fn(config, G, src, drop)
                 real_p = discriminate(config, D, tgt.float(), src.float())
                 fake_p = discriminate(config, D, fake.float(), src.float())
                 pal = ds.palettes[i]
                 images = [indexed_to_rgba(x[0], pal) for x in (src, tgt, fake)]
             else:
                 src, tgt = normalize(src.float()), normalize(tgt.float())
-                fake = generate(config, G, src, drop)
+                fake = self.generate_fn(config, G, src, drop)
                 real_p = discriminate(config, D, tgt, src)
                 fake_p = discriminate(config, D, fake, src)
                 images = [src[0], tgt[0], fake[0].float()]
             source, target, generated = (x.cpu().numpy() for x in images)
             real_p, fake_p = real_p[0].cpu().numpy(), fake_p[0].cpu().numpy()
-            print(f"{dataset_name} pair {i}: discriminated target {np.mean(real_p):.3f}, "
-                  f"discriminated generated {np.mean(fake_p):.3f}")
+            self.say(f"{dataset_name} pair {i}: discriminated target {np.mean(real_p):.3f}, "
+                      f"discriminated generated {np.mean(fake_p):.3f}")
             outputs.append(viz.discriminator_debug_figure(
                 source, target, generated, real_p, fake_p,
-                save_name=f"{save_prefix}_{i}.png" if save_prefix else None,
+                save_name=self._written(f"{save_prefix}_{i}.png") if save_prefix else None,
                 values_in_unit_range=config.is_indexed,
             ))
         return outputs
@@ -325,6 +425,7 @@ class Trainer:
             # the JAX Trainer's L1 seed; training's generators take seed
             # + 4 and + 5 (train/state.py::create_train_state)
             self.config.seed + 2,
+            generate_fn=self.generate_fn,
         )
         if self.writer is not None and step is not None:
             self.writer.scalars(
@@ -341,12 +442,12 @@ class Trainer:
         if num_images is None:
             num_images = sum(self.config.test_sizes)
         if self.fid is None:
-            self.fid = FidEvaluator(device=self.device)
+            self.fid = FidEvaluator(device=self.device, group=self.group)
         drop = self._generator(self.config.seed + 3)
         values = []
         for ds in (self.train_ds, self.test_ds):
             real, fake = eval_metrics.generate_split(
-                self.config, self.state.generator, ds, num_images, drop
+                self.config, self.state.generator, ds, num_images, drop, self.generate_fn
             )
             values.append(self.fid.compare(real, fake))
         if self.writer is not None and step is not None:
@@ -364,27 +465,39 @@ class Trainer:
         base = os.path.join(
             config.temp_folder, "generated-images", config.architecture_name, config.model
         )
-        delete_folder(base)
-        ensure_folder_structure(base)
+        if self._written(base):
+            delete_folder(base)
+            ensure_folder_structure(base)
         for i in range(n):
             self.preview_generated_images(
                 [self._example(ds, i)], os.path.join(base, f"{i}.png"), steps
             )
-        print(f'Generated {n} images (using "{dataset_name}" dataset)')
+        self.say(f'Generated {n} images (using "{dataset_name}" dataset)')
         return base
 
     # -- weights (side2side_model.py:178-200) -------------------------------
+    def _save_params(self, which: str, module) -> str:
+        """The writing rank writes; no rank returns before the file is there."""
+        path = ckpt.params_path(self.config, which)
+        if self._written(path):
+            ckpt.save_params(self.config, which, module)
+        if self.group is not None:
+            self.group.barrier()
+        return path
+
     def save_generator(self) -> str:
-        return ckpt.save_params(self.config, "generator", self.state.generator)
+        return self._save_params("generator", self.state.generator)
 
     def load_generator(self) -> None:
         ckpt.load_params(self.config, "generator", self.state.generator)
+        self._replicate()
 
     def save_discriminator(self) -> str:
-        return ckpt.save_params(self.config, "discriminator", self.state.discriminator)
+        return self._save_params("discriminator", self.state.discriminator)
 
     def load_discriminator(self) -> None:
         ckpt.load_params(self.config, "discriminator", self.state.discriminator)
+        self._replicate()
 
     def import_network_params(self, generator_npz: str | None = None,
                               discriminator_npz: str | None = None) -> None:
@@ -410,8 +523,11 @@ class Trainer:
             optimizer.reset()
         if loads:
             state.step = 0
+        self._replicate()
 
     def restore_latest_checkpoint(self) -> int:
-        """Resume from the latest checkpoint; returns the restored step."""
+        """Resume from the latest checkpoint (read on every rank); returns
+        the restored step."""
         self.manager.restore(self.state)
+        self._replicate()
         return self.state.step

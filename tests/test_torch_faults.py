@@ -1,7 +1,8 @@
-"""Three faults of the port against the JAX reference, repaired:
+"""Faults of the port against the JAX reference, repaired:
   * `data_parallel="on"` asked for several devices and silently trained on
-    one: `check_supported` now refuses it ("auto" and "off" are one
-    device, as in JAX on one device);
+    one: since data parallelism is ported it trains over the process
+    group's ranks (tests/test_torch_parallel.py holds it); "auto" and "off"
+    without a process group are one device;
   * the CLI could not choose the histogram path, and the card trained the
     histogram variant on its slowest one: `--histogram-impl` defaults to
     "pallas2" on a CUDA device and "xla" on the CPU;
@@ -23,13 +24,6 @@ from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
 
 NARROW = dict(down_filters=(8,) * 6, up_filters=(8,) * 6)
 EVALUATION_SEED_OFFSETS = (1, 2, 3)  # the JAX Trainer's evaluations
-
-
-def test_check_supported_refuses_data_parallel_on():
-    config = tconfig.config_for_variant("histogram", data_parallel="on")
-    for device in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            check_supported(config, device)
 
 
 @pytest.mark.parametrize("data_parallel", ["auto", "off"])
@@ -74,7 +68,7 @@ def test_first_l1_masks_differ_from_first_training_masks(monkeypatch):
     trainer = Trainer(config, "cpu", loader.datasets_from_arrays(
         *loader.synthetic_arrays(config, 3), "cpu"))
     seeds = []
-    monkeypatch.setattr(metrics, "report_l1", lambda *a: seeds.append(a[-1]) or (0.0, 0.0))
+    monkeypatch.setattr(metrics, "report_l1", lambda *a, **kw: seeds.append(a[-1]) or (0.0, 0.0))
     trainer.report_l1()
     assert seeds == [config.seed + 2]
 

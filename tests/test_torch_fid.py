@@ -50,6 +50,22 @@ BATCH = 3
 REL = 1e-4  # activations: of the largest |activation| (CPU convs sum in other orders)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch thread and one BLAS thread while this file runs. The suite
+    runs several test processes on the host's cores at once, and a process's
+    default of a thread a core makes them contend: in a full run of the
+    suite this file took 1,013 s and its rank-deficient test 518 s, which
+    takes about 15 s in a process of its own."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(1):
+            yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def bridged():
     """(JAX evaluator, port evaluator, flat weights): the JAX module's

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 from jax.experimental.pallas import tpu as pltpu
 
 import chip_smoke
@@ -49,6 +50,22 @@ METHODS = ("inverse-quadratic", "RBF")
 # version alone is minutes on the CPU)
 SHAPES = ((4, 4096), (64, 4096), (40, 8384))
 TOL = chip_smoke.HIST_TOL[("fwd", "float32")]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch thread and one BLAS thread while this file runs. The suite
+    runs several test processes on the host's cores at once, and a process's
+    default of a thread a core makes them contend: in a full run of the
+    suite this file took 1,011 s and its [40-8384-inverse-quadratic] case
+    410 s, which takes about 11 s in a process of its own."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(1):
+            yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 # ------------------------------------------------------------ TF32 rounding
@@ -128,23 +145,30 @@ def forward_in_kernel_order(logs, iy, method, passes=3):
     """The float32 forward with the kernel's products and order of sums;
     `passes` 3 is 3xTF32 (lo_A hi_B, hi_A lo_B, hi_A hi_B), 1 is hi_A hi_B
     alone."""
+    return forward_in_kernel_order_by_passes(logs, iy, method)[passes]
+
+
+def forward_in_kernel_order_by_passes(logs, iy, method):
+    """{3: 3xTF32, 1: hi_A hi_B alone} of forward_in_kernel_order, from one
+    pass over the pixels: the one-pass sum is the sum of the 3xTF32's last
+    products alone, in the same order."""
     batch, _, hw = logs.shape
     block_pixels = hk.forward_block_pixels(batch, hw, SMS)
     steps_a_tile = TILE // K_STEP
-    planes = []
+    planes = {3: [], 1: []}
     for channel in range(3):
         a, b = _channel_factors(logs, iy, method, channel)
         a_hi, b_hi = _tf32_torch(a), _tf32_torch(b)
         a_lo, b_lo = _tf32_torch(a - a_hi), _tf32_torch(b - b_hi)
-        pairs = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if passes == 3 else [(a_hi, b_hi)]
+        pairs = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)]
         # (batch, 64, k-step, pixel of the step)
         pairs = [(fa.view(batch, BINS, -1, K_STEP), fb.view(batch, BINS, -1, K_STEP))
                  for fa, fb in pairs]
-        plane = None
+        plane = {3: None, 1: None}
         for start in range(0, hw, block_pixels):
             turns = (min(start + block_pixels, hw) - start) // (2 * TILE)
             # [warpgroup]: the float32 sum, the tensor cores' accumulator
-            sums = torch.zeros(2, batch, BINS, BINS)
+            sums = {passes: torch.zeros(2, batch, BINS, BINS) for passes in (3, 1)}
             for run in range(0, turns, RUN_TILES):
                 # the run's k-steps of each warpgroup, in order: turn t of
                 # warpgroup wg is tile 2 t + wg of the part
@@ -160,15 +184,18 @@ def forward_in_kernel_order(logs, iy, method, passes=3):
                      @ fb[:, :, steps].permute(2, 3, 0, 4, 1).double()).float()
                     for fa, fb in pairs
                 ]
-                acc = torch.zeros_like(sums)
-                for step in range(steps.shape[1]):
-                    for p in products:
-                        acc = acc + p[:, step]
-                sums = sums + acc
-            part = sums[0] + sums[1]
-            plane = part if plane is None else plane + part
-        planes.append(plane)
-    return torch.stack(planes, dim=1)
+                for passes, used in ((3, products), (1, products[2:])):
+                    acc = torch.zeros_like(sums[passes])
+                    for step in range(steps.shape[1]):
+                        for p in used:
+                            acc = acc + p[:, step]
+                    sums[passes] = sums[passes] + acc
+            for passes, s in sums.items():
+                part = s[0] + s[1]
+                plane[passes] = part if plane[passes] is None else plane[passes] + part
+        for passes in planes:
+            planes[passes].append(plane[passes])
+    return {passes: torch.stack(p, dim=1) for passes, p in planes.items()}
 
 
 def _inputs(batch, hw):
@@ -191,10 +218,10 @@ def _rel_to_max(ours, ref):
 def test_3xtf32_sum_stays_within_the_tolerance_and_1xtf32_does_not(batch, hw, method):
     logs, iy = _inputs(batch, hw)
     plain = _plain(logs, iy, method)
-    ours = forward_in_kernel_order(logs, iy, method)
+    sums = forward_in_kernel_order_by_passes(logs, iy, method)
+    ours, one_pass = sums[3], sums[1]
     assert ours.shape == plain.shape == (batch, 3, BINS, BINS)
     assert _rel_to_max(ours, plain) <= TOL
-    one_pass = forward_in_kernel_order(logs, iy, method, passes=1)
     assert _rel_to_max(one_pass, plain) > TOL
 
 

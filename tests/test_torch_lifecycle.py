@@ -97,7 +97,7 @@ def test_preview_seeds_are_not_training_seeds():
     assert preview_seed(seed, 3) != preview_seed(seed + 1, 3)
 
 
-def test_fit_refuses_fid_until_it_is_ported(tmp_path, monkeypatch):
+def test_fit_refuses_missing_fid_weights_and_unknown_callbacks(tmp_path, monkeypatch):
     # FID is ported; what it refuses is a run whose weights file is missing
     monkeypatch.setenv("PHG_INCEPTION_WEIGHTS", str(tmp_path / "missing.npz"))
     trainer = narrow_trainer("baseline-no-aug", tmp_path)
