@@ -44,7 +44,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      same weights on the same batches, deterministic dropout and no
      augmentation draws kept (the kernel only normalizes); losses within
      rtol 1e-3. Under the default histogram ("xla"/"tri"), "pallas" and
-     histogram_bwd="pallas".
+     histogram_bwd="pallas"; then "pallas2" in bfloat16 (the b1024 rows'
+     dtype) from three seeds, losses within BF16_PARITY_RTOL.
   6. main path: a full-width float32 histogram-variant Trainer, batch 4, on
      a seeded synthetic sprite set of 250 train / 44 test pairs;
      fit(steps=8, update_steps=4) with the L1 report, then one single step
@@ -71,13 +72,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      indexed Trainer, batch 4, fit(steps=8, update_steps=4) with the L1
      report, the counts read; the card-built datasets equal the CPU-built
      ones; finite losses.
+  9b. reference weights (phase_reference_weights): keras get_weights()
+     archives of the full-width histogram generator and discriminator
+     (seeded, the reference's init scale), converted by `python -m
+     palette_and_histo_gan_tpu_torch.convert_weights --verify` in a
+     subprocess (its forwards on the card), imported into a Trainer on the
+     card (import_network_params): state dicts bit-equal to the CPU path's
+     from the same arrays, the generator's forward within 1e-4 of the
+     CPU's largest value, 4 "pallas2" b4 float32 steps with finite losses
+     and K1, K3b, K4b launched (counted as in the main path).
  10. timed chunks, each after a 2-step warm-up, through Trainer.fit at
      full width: histogram float32 batch 4 (40 steps) under "xla"/"tri" and
      under "pallas2" (the CLI's default on a card), bfloat16 batch 1024 (10
      steps) under "xla"/"tri", "pallas", "pallas2" and
      histogram_bwd="pallas"; indexed float32 batch
      4 (40 steps) and bfloat16 batch 1024 (10 steps); finite losses,
-     ms/step, img/s, peak device memory. The histogram launch counts are
+     ms/step (host clock), img/s, peak device memory; 10 steps
+     again under torch.profiler for the device ms/step
+     (utils/profiling.py::device_step_seconds); MFU, the step's FLOPs
+     (utils/flops.py) x img/s over the peak of the convolutions' dtype
+     (989 TFLOP/s bfloat16, 67 float32: TF32 is off). The histogram launch counts are
      set to 0 before each warm-up and read after its chunk: under
      "pallas2" the bfloat16 forward (K3b) must run twice a step, 24 times,
      under "pallas2" and histogram_bwd="pallas" the bfloat16 backward (K4b
@@ -147,6 +161,13 @@ import torch
 SEED = 47
 F32_TOL = 5e-4  # on the 0-255 scale (palette_and_histo_gan_tpu/ops/augment_pallas.py:67-68)
 PARITY_RTOL = 1e-3
+# the bfloat16 card step against the bfloat16 CPU step (histogram
+# "pallas2", batch 4, two steps, at each of BF16_PARITY_SEEDS), relative,
+# on every loss: about three times the worst the smoke read (2.45e-3,
+# 3.18e-3, 2.30e-3, each the Hellinger loss at step 1; NVIDIA H100 80GB
+# HBM3, 700 W)
+BF16_PARITY_RTOL = 1e-2
+BF16_PARITY_SEEDS = (SEED, SEED + 1, SEED + 2)
 SOURCE = "palette_and_histo_gan_tpu_torch/csrc/augment.cu"
 REPLACES = {
     "packed": "palette_and_histo_gan_tpu/ops/augment_pallas.py:273",
@@ -243,8 +264,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+T_START = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of the smoke's log, with the seconds since it started."""
+    print(f"[{phase} {time.perf_counter() - T_START:.1f}s] {msg}", flush=True)
 
 
 # ---------------------------------------------------------------- kernels
@@ -527,9 +552,12 @@ def check_finite(metrics: dict, what: str) -> None:
         raise AssertionError(f"{what}: non-finite metrics {bad}")
 
 
-def phase_parity(device, config_overrides: dict) -> float:
-    """Two float32 steps on `device` against the same two on the CPU, from
-    the same weights; returns the worst relative loss difference."""
+def phase_parity(device, config_overrides: dict, rtol: float = PARITY_RTOL,
+                 seed: int = SEED) -> float:
+    """Two steps on `device` against the same two on the CPU, from the same
+    weights (float32 unless the overrides say otherwise), weights and
+    batches drawn from `seed`; returns the worst relative loss difference,
+    which must be within `rtol`."""
     from palette_and_histo_gan_tpu_torch import config_for_variant
     from palette_and_histo_gan_tpu_torch.train import create_train_state, make_train_step
     from palette_and_histo_gan_tpu_torch.train.steps import pack_rows
@@ -538,12 +566,12 @@ def phase_parity(device, config_overrides: dict) -> float:
         "histogram", deterministic_dropout=True, augment_probability=0.0,
         temp_folder=TEMP_FOLDER, **config_overrides,
     )
-    ref = create_train_state(config, "cpu", SEED)
-    dev = create_train_state(config, device, SEED)
+    ref = create_train_state(config, "cpu", seed)
+    dev = create_train_state(config, device, seed)
     dev.generator.load_state_dict(ref.generator.state_dict())
     dev.discriminator.load_state_dict(ref.discriminator.state_dict())
     step = make_train_step(config)
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     worst = 0.0
     for i in range(2):
         src, tgt = (
@@ -558,9 +586,10 @@ def phase_parity(device, config_overrides: dict) -> float:
         for k in m_ref:
             rel = abs(m_dev[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-12)
             worst = max(worst, rel)
-            log("parity", f"step {i} {k}: {device.type} {m_dev[k]:.7g}  cpu {m_ref[k]:.7g}  rel {rel:.2e}")
-    if worst > PARITY_RTOL:
-        raise AssertionError(f"card and CPU steps differ by {worst:.2e} > {PARITY_RTOL}")
+            log("parity", f"{config.compute_dtype} step {i} {k}: {device.type} {m_dev[k]:.7g}  "
+                f"cpu {m_ref[k]:.7g}  rel {rel:.2e}")
+    if worst > rtol:
+        raise AssertionError(f"card and CPU {config.compute_dtype} steps differ by {worst:.2e} > {rtol}")
     return worst
 
 
@@ -763,16 +792,129 @@ def phase_indexed_main_path(device, steps=8, update_steps=4) -> dict:
     return launches
 
 
+# steps of a timed chunk's profiled run (the profiler's host cost grows
+# with the kernels it records)
+PROFILED_STEPS = 10
+REF_FORWARD_REL = 1e-4  # card vs CPU generator forward, of the largest |CPU value|
+REF_STEPS = 4
+
+
+def keras_arrays(spec, rng) -> list:
+    """A keras `get_weights()` list for a weight spec, drawn at the
+    reference's init scale: kernels and biases N(0, 0.02), norm scales
+    N(1, 0.02), offsets N(0, 0.02)."""
+    return [rng.normal(1.0 if kind == "scale" else 0.0, 0.02, shape).astype(np.float32)
+            for _, shape, kind in spec]
+
+
+def phase_reference_weights(device) -> dict:
+    """The reference's trained-weight path at full width: keras
+    `get_weights()` archives of the histogram generator (4 -> 4) and
+    discriminator, `python -m palette_and_histo_gan_tpu_torch.
+    convert_weights --verify` on them as a subprocess (its forward on the
+    card), the converted files into a Trainer on the card through
+    import_network_params: its state dicts bit-equal to the CPU path's
+    from the same arrays, its generator's forward within REF_FORWARD_REL
+    of the largest value of the CPU forward, then REF_STEPS steps of
+    "pallas2" at batch 4 float32 with finite losses and K1, K3b and K4b
+    launched. Returns the launches, the forward's error and the seconds."""
+    from palette_and_histo_gan_tpu_torch import config_for_variant
+    from palette_and_histo_gan_tpu_torch.models import convert, networks
+    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, histogram_kernel
+    from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    folder = os.path.join(TEMP_FOLDER, "reference_weights")
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(SEED)
+    arrays = {"generator": keras_arrays(convert.generator_weight_spec(4, 4), rng),
+              "discriminator": keras_arrays(convert.discriminator_weight_spec(4), rng)}
+    keras_files = {}
+    for which, a in arrays.items():
+        keras_files[which] = os.path.join(folder, f"{which}_keras.npz")
+        np.savez(keras_files[which], *a)
+    out_dir = os.path.join(folder, "converted")
+    t_convert = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "palette_and_histo_gan_tpu_torch.convert_weights",
+         "--generator", keras_files["generator"], "--discriminator", keras_files["discriminator"],
+         "--variant", "histogram", "--out-dir", out_dir, "--verify"],
+        capture_output=True, text=True, timeout=600,
+    )
+    convert_s = time.perf_counter() - t_convert
+    for line in proc.stdout.splitlines():
+        log("reference", line)
+    if proc.returncode != 0 or proc.stdout.count("forward on cuda") != 2:
+        raise AssertionError(f"convert_weights exited {proc.returncode}: {proc.stderr[-3000:]}")
+
+    config = config_for_variant("histogram", batch_size=4, temp_folder=TEMP_FOLDER,
+                                **HIST_CONFIGS["pallas2"][0])
+    trainer = Trainer(config, device, synthetic_datasets(config, device))
+    trainer.import_network_params(os.path.join(out_dir, "generator_flax.npz"),
+                                  os.path.join(out_dir, "discriminator_flax.npz"))
+    gen_cpu = networks.build_generator(config, torch.float32)
+    disc_cpu = networks.build_discriminator(config, torch.float32)
+    for which, module, want in (
+        ("generator", trainer.state.generator,
+         convert.generator_state_dict_from_keras(arrays["generator"], gen_cpu)),
+        ("discriminator", trainer.state.discriminator,
+         convert.discriminator_state_dict_from_keras(arrays["discriminator"], disc_cpu)),
+    ):
+        got = module.state_dict()
+        bad = sorted(got.keys() ^ want.keys()) or [
+            k for k in want if not torch.equal(got[k].cpu(), want[k])]
+        if bad:
+            raise AssertionError(f"imported {which} differs from the CPU path's at {bad[:3]}")
+        if which == "generator":
+            gen_cpu.load_state_dict(want)
+    log("reference", "imported state dicts equal the CPU path's from the same arrays, bit for bit")
+    src = torch.from_numpy(rng.uniform(-1.0, 1.0, (4, 64, 64, 4)).astype(np.float32))
+    with torch.no_grad():
+        want = gen_cpu(src, deterministic=True)
+        got = trainer.state.generator(src.to(device), deterministic=True).cpu()
+    forward_rel = float((got - want).abs().max()) / float(want.abs().max())
+    log("reference", f"generator forward, card vs CPU: {forward_rel:.2e} of the largest "
+        f"|value| {float(want.abs().max()):.5f} (tol {REF_FORWARD_REL})")
+    if not forward_rel <= REF_FORWARD_REL:
+        raise AssertionError(f"card forward {forward_rel:.2e} off the CPU's > {REF_FORWARD_REL}")
+
+    augment_kernel.reset_launches()
+    histogram_kernel.reset_launches()
+    trainer.fit(steps=REF_STEPS, update_steps=REF_STEPS)
+    torch.cuda.synchronize()
+    launches = {**augment_kernel.launches, **histogram_kernel.launches}
+    for i, row in enumerate(trainer.history):
+        check_finite(row, f"reference-weight step {i}")
+        log("reference", f"step {i}: G total {row['generator/total_loss']:.5f}  "
+            f"G hellinger {row['generator/histogram_loss']:.5f}  "
+            f"D total {row['discriminator/total_loss']:.5f}")
+    need = {"packed": REF_STEPS, "K3b": 2 * REF_STEPS, "K4b": REF_STEPS}
+    short = {k: launches[k] for k, n in need.items() if launches[k] < n}
+    if device.type == "cuda" and short:
+        raise AssertionError(f"the reference-weight fit did not run the kernels {short}; "
+                             f"needed {need}")
+    seconds = time.perf_counter() - t0
+    log("reference", f"kernel launches {launches}; converter subprocess {convert_s:.1f} s, "
+        f"phase {seconds:.1f} s")
+    return {"launches": launches, "forward_rel": forward_rel, "convert_s": convert_s,
+            "seconds": seconds}
+
+
 def phase_timed_chunk(device, variant: str, compute_dtype: str, config_overrides: dict,
                       steps: int, bf16_kernels=()) -> dict:
     """One chunk of `steps` steps through Trainer.fit after a 2-step
     warm-up; returns ms/step, img/s, the peak device memory and the
     tensor-core histogram kernels' launches in warm-up and chunk, which
     must be BF16_LAUNCHES_A_STEP's for each kernel named in `bf16_kernels`
-    and 0 for the others."""
+    and 0 for the others. Then PROFILED_STEPS steps of the train chunk
+    under torch.profiler (utils/profiling.py::device_step_seconds): the
+    step's device time; and the step's FLOPs
+    (utils/flops.py) over the host clock's img/s as a share of the
+    convolutions' dtype's peak (MFU)."""
     from palette_and_histo_gan_tpu_torch import config_for_variant
     from palette_and_histo_gan_tpu_torch.ops import histogram_kernel
     from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
+    from palette_and_histo_gan_tpu_torch.utils import flops, profiling
 
     config = config_for_variant(
         variant, compute_dtype=compute_dtype, temp_folder=TEMP_FOLDER, **config_overrides
@@ -799,11 +941,21 @@ def phase_timed_chunk(device, variant: str, compute_dtype: str, config_overrides
     if device.type == "cuda" and out["bf16_launches"] != need:
         raise AssertionError(f"the {compute_dtype} chunk launched the tensor-core histogram kernels "
                              f"{out['bf16_launches']} times; needed {need}")
+    dataset = (trainer.train_ds.sources, trainer.train_ds.targets)
+    out["device_ms_per_step"] = 1e3 * profiling.device_step_seconds(
+        lambda n: trainer.train_chunk(trainer.state, dataset, n), PROFILED_STEPS)
+    out["flops_per_image"] = flops.train_step_flops_per_image(config)
+    # TF32 is off under set_f32_parity_mode: float32 convolutions run at
+    # float32's peak, bfloat16 ones at the tensor cores' dense bfloat16 peak
+    peak = PEAK["bfloat16" if compute_dtype == "bfloat16" else "float32"]
+    out["mfu"] = out["flops_per_image"] * out["img_per_s"] / peak
     log(
         "timed",
         f"{variant} {compute_dtype} batch {config.batch_size}, {steps} steps in {seconds:.4f} s: "
-        f"{out['ms_per_step']:.3f} ms/step, {out['img_per_s']:.1f} img/s, "
-        f"peak {out['peak_gib']:.2f} GiB; last step G total "
+        f"{out['ms_per_step']:.3f} ms/step (host), {out['device_ms_per_step']:.3f} ms/step "
+        f"(device), {out['img_per_s']:.1f} img/s, {out['flops_per_image'] / 1e9:.4f} GFLOP/img, "
+        f"MFU {100 * out['mfu']:.2f}% of {peak / 1e12:.0f} TFLOP/s, peak {out['peak_gib']:.2f} GiB; "
+        f"last step G total "
         f"{last['generator/total_loss']:.5f} D total {last['discriminator/total_loss']:.5f}; "
         f"tensor-core histogram kernel launches {out['bf16_launches']}",
     )
@@ -1606,6 +1758,11 @@ def tensor_core_report() -> dict:
     return out
 
 
+def timed_row(r: dict) -> str:
+    return (f"{r['ms_per_step']:.3f} / {r['device_ms_per_step']:.3f} / {r['img_per_s']:.1f} / "
+            f"{100 * r['mfu']:.2f}%")
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, times) -> dict:
     """One entry of the kernels line; `times` is (kernel ms, plain ms,
     bound ms, what bounds it). No single PyTorch call computes any of these
@@ -1625,7 +1782,6 @@ def main() -> int:
         return 1
     from palette_and_histo_gan_tpu_torch import set_f32_parity_mode
 
-    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
     log("device", f"{card}; {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
@@ -1640,6 +1796,13 @@ def main() -> int:
     for label in ("xla/tri", "pallas", "bwd=pallas"):
         worst = phase_parity(device, dict(batch_size=4, **HIST_CONFIGS[label][0]))
         log("parity", f"{label}: worst relative loss difference {worst:.2e} (tol {PARITY_RTOL})")
+    bf16_parity = [
+        phase_parity(device, dict(batch_size=4, compute_dtype="bfloat16",
+                                  **HIST_CONFIGS["pallas2"][0]), BF16_PARITY_RTOL, seed)
+        for seed in BF16_PARITY_SEEDS
+    ]
+    log("parity", f"pallas2 bfloat16, seeds {BF16_PARITY_SEEDS}: worst relative loss "
+        f"differences {', '.join(f'{w:.2e}' for w in bf16_parity)} (tol {BF16_PARITY_RTOL})")
 
     launches = {}
     for label, (overrides, names) in HIST_CONFIGS.items():
@@ -1652,6 +1815,7 @@ def main() -> int:
     worst = phase_indexed_parity(device)
     log("parity", f"indexed: worst relative loss difference {worst:.2e} (tol {PARITY_RTOL})")
     launches.update(phase_indexed_main_path(device))
+    reference = phase_reference_weights(device)
 
     f32 = phase_timed_chunk(device, "histogram", "float32", dict(batch_size=4), steps=40)
     f32_pallas2 = phase_timed_chunk(device, "histogram", "float32",
@@ -1700,6 +1864,11 @@ def main() -> int:
         name = {"augment_packed": "packed"}.get(entry["name"], entry["name"])
         if dp["gloo"]["launches"].get(name):
             entry["dp_rank_launches"] = dp["gloo"]["launches"][name]
+    # the launches of the reference-weight phase's 4-step fit
+    for entry in kernels:
+        name = {"augment_packed": "packed"}.get(entry["name"], entry["name"])
+        if name in ("packed", "K3b", "K4b"):
+            entry["reference_weights_launches"] = reference["launches"][name]
     # K3a beside the bound of its products as float32 FMAs
     k3a = next(e for e in kernels if e["name"] == "K3a")
     k3a["bound_f32_fma_ms"] = hist["times"][("K3a fma", 1024)][0]
@@ -1710,13 +1879,14 @@ def main() -> int:
         + f"; K3a b1024 {k3a['ms']:.4f} ms: {100 * k3a['bound_ms'] / k3a['ms']:.1f}% of its 3xTF32 bound "
         + f"{k3a['bound_ms']:.4f} ms, {100 * k3a['bound_f32_fma_ms'] / k3a['ms']:.1f}% of the float32-FMA "
         + f"bound {k3a['bound_f32_fma_ms']:.4f} ms"
-        + f"; histogram f32 b4 {f32['ms_per_step']:.3f} ms/step {f32['img_per_s']:.1f} img/s "
-        + f"(pallas2 {f32_pallas2['ms_per_step']:.3f} ms/step {f32_pallas2['img_per_s']:.1f} img/s); bf16 b1024 "
-        + ", ".join(f"{label} {r['ms_per_step']:.3f} ms/step {r['img_per_s']:.1f} img/s {r['peak_gib']:.2f} GiB"
-                    for label, r in bf16.items())
-        + f"; indexed f32 b4 {idx_f32['ms_per_step']:.3f} ms/step {idx_f32['img_per_s']:.1f} img/s"
-        + f", bf16 b1024 {idx_bf16['ms_per_step']:.3f} ms/step {idx_bf16['img_per_s']:.1f} img/s "
+        + f"; steps (host ms / device ms / img/s / MFU): histogram f32 b4 {timed_row(f32)} "
+        + f"(pallas2 {timed_row(f32_pallas2)}); bf16 b1024 "
+        + ", ".join(f"{label} {timed_row(r)} {r['peak_gib']:.2f} GiB" for label, r in bf16.items())
+        + f"; indexed f32 b4 {timed_row(idx_f32)}, bf16 b1024 {timed_row(idx_bf16)} "
         + f"{idx_bf16['peak_gib']:.2f} GiB"
+        + f"; bf16 parity (pallas2 b4, card vs CPU) {'/'.join(f'{w:.2e}' for w in bf16_parity)}"
+        + f"; reference weights: converter {reference['convert_s']:.1f} s, card forward "
+        + f"{reference['forward_rel']:.2e} of max, phase {reference['seconds']:.1f} s"
         + f"; lifecycle b1024 bf16 {life['train_chunk_ms_per_step']:.3f} ms/step, preview "
         + f"{life['preview_ms']:.2f} ms, save held {life['save_held_ms']:.2f} ms, checkpoint "
         + f"{life['ckpt_bytes']} bytes (b4 f32 {life['ckpt_bytes_f32']})"
@@ -1734,7 +1904,7 @@ def main() -> int:
         + (f"; NCCL over {dp['cards']['world']} cards {dp['cards']['ms_per_step']:.3f} ms/step "
            f"{dp['cards']['img_per_s_card']:.1f} img/s a card" if "cards" in dp else "")
         + f"; run_experiment {experiment_s:.1f} s"
-        + f"; smoke {time.perf_counter() - t_start:.1f} s")
+        + f"; smoke {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

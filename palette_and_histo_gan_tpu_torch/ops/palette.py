@@ -165,3 +165,15 @@ def indexed_to_rgba(indexed: torch.Tensor, palette: torch.Tensor) -> torch.Tenso
     rows = torch.arange(n, device=indexed.device)[:, None]
     out = palette[rows, labels].reshape(n, h, w, palette.shape[-1])
     return out[0] if single else out
+
+
+def rgba_to_single_int(values_in_rgba: torch.Tensor) -> torch.Tensor:
+    """Pack RGBA into one int32 with the multipliers [2^24, 2^16, 2^8, 0]
+    (the alpha's 0 is the reference's, kept). Unused by training; kept for
+    API parity. The channels truncate to integers and the sum wraps modulo
+    2^32 to int32, so r >= 128 comes out negative, as uint32 arithmetic
+    bitcast to int32 gives."""
+    v = values_in_rgba.to(torch.int64)
+    packed = v[..., 0] * 16777216 + v[..., 1] * 65536 + v[..., 2] * 256 + v[..., 3] * 0
+    packed = torch.remainder(packed, 2**32)
+    return torch.where(packed >= 2**31, packed - 2**32, packed).to(torch.int32)

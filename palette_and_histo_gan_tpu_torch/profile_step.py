@@ -23,18 +23,9 @@ import sys
 import time
 
 import torch
-from torch.autograd import DeviceType
 
 from .config import MODEL_VARIANTS, config_for_variant, set_f32_parity_mode
-
-
-def _device_us(event) -> float:
-    """An aggregate's own device time in microseconds, under the name this
-    PyTorch version gives it."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(event, name):
-            return float(getattr(event, name))
-    return 0.0
+from .utils import profiling
 
 
 def main(argv=None) -> int:
@@ -85,15 +76,9 @@ def main(argv=None) -> int:
         trainer.train_chunk(trainer.state, dataset, args.steps)
         torch.cuda.synchronize()
         window_us = 1e6 * (time.perf_counter() - t0)
-    # the device's own rows (kernels, copies, memsets); the host ops' rows
-    # and the annotated ranges (the optimizer's step) count the same
-    # device time again
     kernels = [
-        (e.key, _device_us(e) / args.steps / 1e3, e.count // args.steps)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and _device_us(e) > 0
-        and not getattr(e, "is_user_annotation", False)
-        and not e.key.startswith("Optimizer.")
+        (e.key, profiling.device_us(e) / args.steps / 1e3, e.count // args.steps)
+        for e in profiling.device_events(prof)
     ]
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(ms for _, ms, _ in kernels)

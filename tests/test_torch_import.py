@@ -1,12 +1,13 @@
 """The PyTorch port runs without JAX and without the JAX package.
 
-* In a fresh interpreter: import the port (with its FID, export, serving
-  and experiment modules), train one step of a narrow
-  histogram-variant Trainer and one of a narrow indexed Trainer on the CPU
-  (the plain augmentation and the plain palette index, since the tensors
-  lie on the CPU), and check that neither `jax` nor any module of
-  `palette_and_histo_gan_tpu` was loaded and that no CUDA kernel was
-  launched.
+* In a fresh interpreter: import the port (with its FID, export,
+  serving, experiment, weight-conversion, FLOP-count and profiling
+  modules), train one step of a narrow histogram-variant Trainer and one
+  of a narrow indexed Trainer on the CPU (the plain augmentation and the
+  plain palette index, since the tensors lie on the CPU), convert a keras
+  discriminator archive with its CPU forward, and check that neither
+  `jax` nor any module of `palette_and_histo_gan_tpu` was loaded and that
+  no CUDA kernel was launched.
 * An AST scan of the port's sources and of chip_smoke.py finds no import
   of the JAX package or of JAX.
 """
@@ -27,12 +28,13 @@ PROGRAM = textwrap.dedent(
     import json, math, sys
 
     import palette_and_histo_gan_tpu_torch as port
-    from palette_and_histo_gan_tpu_torch import run_experiment, serve
+    from palette_and_histo_gan_tpu_torch import convert_weights, run_experiment, serve
     from palette_and_histo_gan_tpu_torch.data import loader
     from palette_and_histo_gan_tpu_torch.eval import fid
     from palette_and_histo_gan_tpu_torch.models import export, inception
     from palette_and_histo_gan_tpu_torch.ops import augment_kernel, palette_kernel
     from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
+    from palette_and_histo_gan_tpu_torch.utils import flops, profiling
 
     narrow = dict(down_filters=(8,) * 6, up_filters=(8,) * 6, batch_size=2,
                   dataset_sizes=(8,), temp_folder=sys.argv[1])
@@ -47,6 +49,14 @@ PROGRAM = textwrap.dedent(
         trainer = Trainer(config, "cpu", datasets)
         trainer.fit(steps=1, update_steps=1, callbacks=["evaluate_l1"])
         histories[variant] = (trainer.state.step, trainer.history[0])
+    # the converter end to end: a keras get_weights() archive of the PatchGAN
+    import numpy as np
+    from palette_and_histo_gan_tpu_torch.models import convert
+    keras = sys.argv[1] + "/disc_keras.npz"
+    np.savez(keras, *[np.full(shape, 0.01, np.float32)
+                      for _, shape, _ in convert.discriminator_weight_spec(4)])
+    assert convert_weights.main(["--discriminator", keras, "--out-dir", sys.argv[1],
+                                 "--verify", "--device", "cpu"]) == 0
     loaded = sorted(
         m for m in sys.modules
         if m in ("jax", "palette_and_histo_gan_tpu")
@@ -96,6 +106,9 @@ def test_port_sources_import_nothing_of_the_jax_package():
                         recursive=True)
     sources.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(sources) > 20
+    for module in ("convert_weights.py", "utils/flops.py", "utils/profiling.py",
+                   "models/convert.py"):
+        assert os.path.join(REPO, "palette_and_histo_gan_tpu_torch", module) in sources, module
     bad = {
         os.path.relpath(path, REPO): sorted(
             m for m in _imported_modules(path)
