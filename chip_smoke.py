@@ -44,8 +44,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      same weights on the same batches, deterministic dropout and no
      augmentation draws kept (the kernel only normalizes); losses within
      rtol 1e-3. Under the default histogram ("xla"/"tri"), "pallas" and
-     histogram_bwd="pallas"; then "pallas2" in bfloat16 (the b1024 rows'
-     dtype) from three seeds, losses within BF16_PARITY_RTOL.
+     histogram_bwd="pallas"; the same for baseline and baseline-no-aug;
+     then "pallas2" in bfloat16 (the b1024 rows' dtype) from three seeds,
+     losses within BF16_PARITY_RTOL.
   6. main path: a full-width float32 histogram-variant Trainer, batch 4, on
      a seeded synthetic sprite set of 250 train / 44 test pairs;
      fit(steps=8, update_steps=4) with the L1 report, then one single step
@@ -54,7 +55,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      "pallas"). The kernel launch counts are set to 0 before each run and
      read after; the augmentation's must be at least 8 (packed) and 1
      (uint8), the configuration's histogram forward at least 16 and its
-     backward at least 8.
+     backward at least 8. Then baseline (K1 at least 8, K2 at least 1) and
+     baseline-no-aug, whose step gathers unpacked rows and only
+     normalizes (K1 and K2 exactly 0).
   7. palette index kernel K5 vs plain: on the few-colour synthetic sprite
      set of 250 + 44 pairs (data/loader.py::synthetic_indexed_arrays), its
      588 images against their pairs' joint palettes, and its first 4;
@@ -72,6 +75,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      indexed Trainer, batch 4, fit(steps=8, update_steps=4) with the L1
      report, the counts read; the card-built datasets equal the CPU-built
      ones; finite losses.
+  9a. dataset root (phase_dataset_root): the seeded synthetic sets (the
+     few-colour one for indexed) written as PNG dataset roots
+     (<root>/<train|test>/<i-direction>/<n>.png, the stdlib PNG writer),
+     decoded by native/png_io equal to the arrays; the indexed splits
+     built on the card from the root (K5, at least 4 launches) equal to
+     the ones built from the arrays; `cli --data-root ROOT` (no
+     --synthetic) for histogram and indexed, 4 steps each, in processes of
+     their own that print their launches: exit 0, K1, K3b and K4b
+     (histogram) or K5 (indexed) launched.
   9b. reference weights (phase_reference_weights): keras get_weights()
      archives of the full-width histogram generator and discriminator
      (seeded, the reference's init scale), converted by `python -m
@@ -85,7 +97,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      full width: histogram float32 batch 4 (40 steps) under "xla"/"tri" and
      under "pallas2" (the CLI's default on a card), bfloat16 batch 1024 (10
      steps) under "xla"/"tri", "pallas", "pallas2" and
-     histogram_bwd="pallas"; indexed float32 batch
+     histogram_bwd="pallas"; baseline and baseline-no-aug bfloat16 batch
+     1024 (10 steps); indexed float32 batch
      4 (40 steps) and bfloat16 batch 1024 (10 steps); finite losses,
      ms/step (host clock), img/s, peak device memory; 10 steps
      again under torch.profiler for the device ms/step
@@ -127,6 +140,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      size 1, b1024 bfloat16 "pallas2" ms/step against one device in turns,
      the gradient all_reduces' ms a step; NCCL across cards where there are
      two or more, else logged as skipped.
+ 14b. torchrun (phase_torchrun): `torchrun --standalone
+     --nproc-per-node=<cards> -m palette_and_histo_gan_tpu_torch.cli
+     --model histogram --synthetic --data-parallel on --batch-size 8`, 4
+     steps, over NCCL (one card: a world of one): exit 0; only rank 0
+     prints (torchrun's per-rank logs) and writes under the working
+     directory (an audit hook in each rank). No torchrun fails it.
  15. run_experiment: `python -m palette_and_histo_gan_tpu_torch.run_experiment
      --model histogram --synthetic` at full width on the card, 4 steps with
      the three callbacks, exits 0.
@@ -143,7 +162,9 @@ FMAs (bound_f32_fma_ms), which no design on the CUDA cores can pass; K3b,
 K4b and K4c the tensor-core kernels' launches in the b1024 bf16 chunks
 (bf16_launches); K1, K3b, K4b and K5 their launches in the lifecycle
 phase (lifecycle_launches), K1, K3b and K4b a data-parallel rank's in
-part 1 of the data-parallel phase (dp_rank_launches).
+part 1 of the data-parallel phase (dp_rank_launches); K1 and K2 their
+launches on baseline's main path (baseline_launches); K1, K3b, K4b and
+K5 theirs in the CLI's dataset-root runs (dataset_root_launches).
 """
 
 from __future__ import annotations
@@ -151,8 +172,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import textwrap
 import time
 
 import numpy as np
@@ -217,6 +240,9 @@ HIST_CONFIGS = {
 PAL_SOURCE = "palette_and_histo_gan_tpu_torch/csrc/palette.cu"
 PAL_REPLACES = "palette_and_histo_gan_tpu/ops/palette_pallas.py:26"
 ARGMAX_AGREEMENT = 0.999
+# the RGBA variants without the histogram: baseline augments (K1, K2),
+# baseline-no-aug only normalizes (no kernel)
+BASELINE_VARIANTS = ("baseline", "baseline-no-aug")
 # logs of the smoke's Trainers go under a folder .gitignore lists
 TEMP_FOLDER = os.path.join("build", "chip_smoke")
 
@@ -552,18 +578,18 @@ def check_finite(metrics: dict, what: str) -> None:
         raise AssertionError(f"{what}: non-finite metrics {bad}")
 
 
-def phase_parity(device, config_overrides: dict, rtol: float = PARITY_RTOL,
+def phase_parity(device, variant: str, config_overrides: dict, rtol: float = PARITY_RTOL,
                  seed: int = SEED) -> float:
-    """Two steps on `device` against the same two on the CPU, from the same
-    weights (float32 unless the overrides say otherwise), weights and
-    batches drawn from `seed`; returns the worst relative loss difference,
-    which must be within `rtol`."""
+    """Two steps of an RGBA variant on `device` against the same two on the
+    CPU, from the same weights (float32 unless the overrides say
+    otherwise), weights and batches drawn from `seed`; returns the worst
+    relative loss difference, which must be within `rtol`."""
     from palette_and_histo_gan_tpu_torch import config_for_variant
     from palette_and_histo_gan_tpu_torch.train import create_train_state, make_train_step
     from palette_and_histo_gan_tpu_torch.train.steps import pack_rows
 
     config = config_for_variant(
-        "histogram", deterministic_dropout=True, augment_probability=0.0,
+        variant, deterministic_dropout=True, augment_probability=0.0,
         temp_folder=TEMP_FOLDER, **config_overrides,
     )
     ref = create_train_state(config, "cpu", seed)
@@ -586,25 +612,30 @@ def phase_parity(device, config_overrides: dict, rtol: float = PARITY_RTOL,
         for k in m_ref:
             rel = abs(m_dev[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-12)
             worst = max(worst, rel)
-            log("parity", f"{config.compute_dtype} step {i} {k}: {device.type} {m_dev[k]:.7g}  "
+            log("parity", f"{variant} {config.compute_dtype} step {i} {k}: {device.type} {m_dev[k]:.7g}  "
                 f"cpu {m_ref[k]:.7g}  rel {rel:.2e}")
     if worst > rtol:
-        raise AssertionError(f"card and CPU {config.compute_dtype} steps differ by {worst:.2e} > {rtol}")
+        raise AssertionError(f"card and CPU {variant} {config.compute_dtype} steps differ by "
+                             f"{worst:.2e} > {rtol}")
     return worst
 
 
-def phase_main_path(device, config_overrides: dict, hist_kernels=(), steps=8, update_steps=4) -> dict:
-    """The Trainer's fit and one single step on a uint8 batch; returns the
-    launch counts of that run, augmentation's and histogram's."""
+def phase_main_path(device, variant: str, config_overrides: dict, hist_kernels=(), steps=8,
+                    update_steps=4) -> dict:
+    """An RGBA variant's Trainer fit and one single step on a uint8 batch;
+    returns the launch counts of that run, augmentation's and histogram's.
+    A variant that augments must launch K1 once a step and K2 in the
+    single step; baseline-no-aug, whose step gathers unpacked rows and only
+    normalizes, must launch neither."""
     from palette_and_histo_gan_tpu_torch import config_for_variant
     from palette_and_histo_gan_tpu_torch.data import batch_indices
     from palette_and_histo_gan_tpu_torch.ops import augment_kernel, histogram_kernel
     from palette_and_histo_gan_tpu_torch.train import make_train_step
     from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
 
-    config = config_for_variant("histogram", temp_folder=TEMP_FOLDER, **config_overrides)
+    config = config_for_variant(variant, temp_folder=TEMP_FOLDER, **config_overrides)
     trainer = Trainer(config, device, synthetic_datasets(config, device))
-    log("main", f"train {trainer.train_ds.n} / test {trainer.test_ds.n} pairs, batch {config.batch_size}, "
+    log("main", f"{variant}: train {trainer.train_ds.n} / test {trainer.test_ds.n} pairs, batch {config.batch_size}, "
         f"{config.compute_dtype}, histogram_impl {config.histogram_impl}, histogram_bwd {config.histogram_bwd}")
 
     augment_kernel.reset_launches()
@@ -623,8 +654,8 @@ def phase_main_path(device, config_overrides: dict, hist_kernels=(), steps=8, up
         check_finite(row, f"step {i}")
         log(
             "main",
-            f"step {i}: G total {row['generator/total_loss']:.5f}  "
-            f"G hellinger {row['generator/histogram_loss']:.5f}  "
+            f"{variant} step {i}: G total {row['generator/total_loss']:.5f}  "
+            f"G hellinger {row.get('generator/histogram_loss', float('nan')):.5f}  "
             f"D total {row['discriminator/total_loss']:.5f}",
         )
     single = {k: float(v) for k, v in single.items()}
@@ -637,13 +668,20 @@ def phase_main_path(device, config_overrides: dict, hist_kernels=(), steps=8, up
     if len(trainer.history) != steps or trainer.state.step != steps + 1:
         raise AssertionError(f"{len(trainer.history)} steps logged, state at {trainer.state.step}")
     log("main", f"kernel launches in this run: {launches}")
+    if device.type != "cuda":
+        return launches
+    if not config.uses_augmentation:
+        augmented = {k: launches[k] for k in ("packed", "rgba") if launches[k]}
+        if augmented:
+            raise AssertionError(f"{variant} launched the augment kernel {augmented}")
+        return launches
     # each step runs the histogram twice (real and fake) and backpropagates
     # the fake's only
     need = {"packed": steps, "rgba": 1}
     for name in hist_kernels:
         need[name] = 2 * steps if HIST_KERNELS[name][0] == "fwd" else steps
     short = {k: launches[k] for k, n in need.items() if launches[k] < n}
-    if device.type == "cuda" and short:
+    if short:
         raise AssertionError(f"the main path did not run the kernels {short}; needed {need}")
     return launches
 
@@ -1209,6 +1247,7 @@ def phase_fid(device, card: str) -> tuple[dict, object]:
     Returns the timings and the card's evaluator (quirks on), which the
     lifecycle's Trainers share."""
     from palette_and_histo_gan_tpu_torch import set_deterministic_mode
+    from palette_and_histo_gan_tpu_torch.config import float32_exact
     from palette_and_histo_gan_tpu_torch.eval import fid
     from palette_and_histo_gan_tpu_torch.models import inception
 
@@ -1283,7 +1322,7 @@ def phase_fid(device, card: str) -> tuple[dict, object]:
     if not abs(same) < FID_SAME_REL * abs(lowrank) + 1e-3:
         raise AssertionError(f"FID of identical sets {same}")
 
-    with fid.float32_exact(), torch.inference_mode():
+    with float32_exact(), torch.inference_mode():
         out["forward_ms"] = cuda_ms(lambda: card_ev.model(pre), 20)
     flops = inception.conv_flops(card_ev.model, card_ev.input_size)
     out["bound_ms"] = 1e3 * FID_BATCH * flops / PEAK["float32"]
@@ -1407,6 +1446,213 @@ def phase_run_experiment(device) -> float:
     if proc.returncode != 0 or len(fids) != 3:
         raise AssertionError(f"run_experiment failed: {proc.stderr[-3000:]}")
     return seconds
+
+
+# ------------------------------------------------- dataset root, torchrun
+
+# the CLI in a process of its own, its kernels' launches printed after it
+CLI_WITH_LAUNCHES = textwrap.dedent(
+    """
+    import json, sys
+    from palette_and_histo_gan_tpu_torch import cli
+    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, histogram_kernel, palette_kernel
+    code = cli.main(sys.argv[1:])
+    print(json.dumps({**augment_kernel.launches, **histogram_kernel.launches,
+                      **palette_kernel.launches}))
+    sys.exit(code)
+    """
+)
+
+
+def write_dataset_root(root: str, config, arrays) -> None:
+    """(train_sources, train_targets, test_sources, test_targets) as PNGs
+    of config's source and target directions in the dataset's layout,
+    <root>/<train|test>/<i-direction>/<n>.png, by the port's stdlib PNG
+    writer (the card's machine has no PIL)."""
+    from palette_and_histo_gan_tpu_torch.config import DIRECTION_FOLDERS
+    from palette_and_histo_gan_tpu_torch.utils.visualization import _write_png
+
+    directions = (config.source_direction, config.target_direction)
+    for split, pair in (("train", arrays[:2]), ("test", arrays[2:])):
+        for direction, images in zip(directions, pair):
+            folder = os.path.join(root, split, DIRECTION_FOLDERS[direction])
+            os.makedirs(folder)
+            for i, img in enumerate(images):
+                _write_png(img, os.path.join(folder, f"{i}.png"))
+
+
+def phase_dataset_root(device) -> dict:
+    """The Trainer's default data path on the card: the seeded synthetic
+    sets (random sprites; the few-colour set for indexed) written as PNG
+    dataset roots, decoded by native/png_io (g++ and zlib) equal to the
+    arrays; for indexed, the splits built on the card from the root (K5)
+    equal to the ones built from the arrays; then `cli --data-root ROOT`
+    (no --synthetic) for histogram and indexed, 4 steps each, in a process
+    of its own on the card: it exits 0, and launches K1, K3b and K4b
+    (histogram, "pallas2", the CLI's default on a card) or K5 (indexed)."""
+    from palette_and_histo_gan_tpu_torch import config_for_variant
+    from palette_and_histo_gan_tpu_torch.data import loader
+    from palette_and_histo_gan_tpu_torch.native import png_io
+    from palette_and_histo_gan_tpu_torch.ops import palette_kernel
+
+    base = os.path.abspath(os.path.join(TEMP_FOLDER, "dataset_root"))
+    shutil.rmtree(base, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    need = {"histogram": {"packed": 4, "K3b": 8, "K4b": 4}, "indexed": {"K5": 4}}
+    out = {}
+    for variant in ("histogram", "indexed"):
+        config = config_for_variant(variant, temp_folder=TEMP_FOLDER)
+        make = loader.synthetic_indexed_arrays if config.is_indexed else loader.synthetic_arrays
+        arrays = make(config, SEED)
+        root = os.path.join(base, variant, "dataset")
+        t0 = time.perf_counter()
+        write_dataset_root(root, config, arrays)
+        config = config.replace(data_root=root)
+        decoded = loader.load_split_pairs(config)
+        if png_io.build_error():
+            raise AssertionError(f"the native PNG decoder did not build: {png_io.build_error()}")
+        for name, ours, want in zip(("train sources", "train targets", "test sources",
+                                     "test targets"), decoded, arrays):
+            if not np.array_equal(ours, want):
+                raise AssertionError(f"{variant}: the decoded {name} differ from the arrays")
+        log("dataset_root", f"{variant}: {sum(len(a) for a in arrays)} PNGs written and decoded "
+            f"equal to the arrays in {time.perf_counter() - t0:.1f} s")
+        if config.is_indexed:
+            palette_kernel.reset_launches()
+            built = loader.make_indexed_datasets(config, device)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            k5 = palette_kernel.launches["K5"]
+            want = loader.indexed_datasets_from_arrays(*arrays, device, config.palette_ordering,
+                                                       config.seed)
+            for split, ours, theirs in zip(("train", "test"), built, want):
+                for field, a, b in zip(ours._fields, ours, theirs):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"indexed {split} {field} from the dataset root "
+                                             "differ from the ones built from the arrays")
+            if device.type == "cuda" and k5 < 4:
+                raise AssertionError(f"the indexed dataset build launched K5 {k5} times")
+            log("dataset_root", f"indexed splits built on the card from the root (K5 {k5} "
+                "launches) equal to the ones built from the arrays")
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", CLI_WITH_LAUNCHES, "--model", variant, "--data-root", root,
+             "--device", str(device), "--steps", "4", "--update-steps", "2"],
+            cwd=os.path.join(base, variant), env=env, capture_output=True, text=True,
+            timeout=600,
+        )
+        seconds = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0:
+            raise AssertionError(f"cli --data-root ({variant}) exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        launches = json.loads(lines[-1])
+        short = {k: launches[k] for k, n in need[variant].items() if launches[k] < n}
+        log("dataset_root", f"cli --model {variant} --data-root: exit 0 in {seconds:.1f} s; "
+            f"launches {launches}; {lines[-2]!r}")
+        if device.type == "cuda" and short:
+            raise AssertionError(f"cli --data-root ({variant}) did not run the kernels {short}; "
+                                 f"needed {need[variant]}")
+        out[variant] = {"launches": launches, "seconds": seconds}
+    return out
+
+
+# installed in each torchrun rank (PYTHONPATH): records the paths under the
+# working directory that the rank opens for writing, creates, renames or
+# removes, and writes them to $PHG_AUDIT_DIR/rank<RANK>.json at exit
+AUDIT_SITECUSTOMIZE = textwrap.dedent(
+    """
+    import atexit, json, os, sys
+
+    _rank = os.environ.get("RANK")
+    _root = os.path.realpath(os.getcwd())
+    _writes = []
+    _WRITE = os.O_WRONLY | os.O_RDWR | os.O_CREAT | os.O_APPEND | os.O_TRUNC
+
+    def _audit(event, args):
+        if event == "open":
+            path, flags = args[0], args[2]
+            if not isinstance(path, (str, bytes)) or not flags & _WRITE:
+                return
+        elif event in ("os.mkdir", "os.rename", "os.remove"):
+            path = args[0]
+        else:
+            return
+        path = os.path.realpath(os.fsdecode(path))
+        if path.startswith(_root + os.sep):
+            _writes.append([event, path])
+
+    def _report():
+        with open(os.path.join(os.environ["PHG_AUDIT_DIR"], f"rank{_rank}.json"), "w") as f:
+            json.dump(_writes, f)
+
+    if _rank is not None:
+        sys.addaudithook(_audit)
+        atexit.register(_report)
+    """
+)
+
+
+def phase_torchrun(device) -> dict:
+    """`torchrun --standalone --nproc-per-node=N -m
+    palette_and_histo_gan_tpu_torch.cli --model histogram --synthetic
+    --data-parallel on --batch-size 8 --steps 4 --update-steps 2` over
+    NCCL, N the machine's cards (one card: a world of one; on the CPU two
+    ranks over Gloo): it exits 0, only rank 0 prints (torchrun's per-rank
+    logs) and writes under the working directory (an audit hook in each
+    rank). A machine without torchrun fails the phase."""
+    world = torch.cuda.device_count() if device.type == "cuda" else 2
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    torchrun = shutil.which("torchrun") or os.path.join(os.path.dirname(sys.executable), "torchrun")
+    if not os.path.isfile(torchrun):
+        raise AssertionError("torchrun is not on PATH nor beside the interpreter")
+    base = os.path.abspath(os.path.join(TEMP_FOLDER, "torchrun"))
+    shutil.rmtree(base, ignore_errors=True)
+    run, audit, logs, site = (os.path.join(base, d) for d in ("run", "audit", "logs", "site"))
+    for d in (run, audit, site):
+        os.makedirs(d)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(AUDIT_SITECUSTOMIZE)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([site, repo]), PHG_AUDIT_DIR=audit)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [torchrun, "--standalone", f"--nproc-per-node={world}", "--log-dir", logs,
+         "--redirects", "1", "-m", "palette_and_histo_gan_tpu_torch.cli", "--device",
+         device.type, "--model", "histogram", "--synthetic", "--data-parallel", "on", "--batch-size", "8",
+         "--steps", "4", "--update-steps", "2"],
+        cwd=run, env=env, capture_output=True, text=True, timeout=600,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun exited {proc.returncode}: {proc.stderr[-3000:]}")
+    import glob
+
+    stdout = {}
+    for path in glob.glob(os.path.join(logs, "**", "stdout.log"), recursive=True):
+        with open(path) as f:
+            stdout[int(os.path.basename(os.path.dirname(path)))] = f.read()
+    writes = {}
+    for rank in range(world):
+        with open(os.path.join(audit, f"rank{rank}.json")) as f:
+            writes[rank] = json.load(f)
+    start = [line for line in stdout.get(0, "").splitlines() if line.startswith("Starting training")]
+    log("torchrun", f"{world} rank(s) over {backend}: exit 0 in {seconds:.1f} s; rank 0: {start}; "
+        f"rank 0 wrote {len(writes[0])} paths; ranks above 0 printed "
+        f"{sum(len(stdout.get(r, '')) for r in range(1, world))} characters and wrote "
+        f"{sum(len(writes[r]) for r in range(1, world))} paths")
+    if sorted(stdout) != list(range(world)):
+        raise AssertionError(f"torchrun logged ranks {sorted(stdout)}, expected {world}")
+    if len(start) != 1 or f"data parallel, {backend} x {world} ranks" not in start[0]:
+        raise AssertionError(f"rank 0 did not print the start-up line over {backend}: {start}")
+    if not any("training-checkpoints" in p for _, p in writes[0]):
+        raise AssertionError("rank 0 wrote no checkpoint (or the audit hook saw no write)")
+    loud = {r: stdout[r][-500:] for r in range(1, world) if stdout[r]}
+    wrote = {r: writes[r][:5] for r in range(1, world) if writes[r]}
+    if loud or wrote:
+        raise AssertionError(f"ranks above 0 printed {loud} or wrote {wrote}")
+    return {"world": world, "seconds": seconds}
 
 
 # ---------------------------------------------------------- data parallel
@@ -1758,6 +2004,18 @@ def tensor_core_report() -> dict:
     return out
 
 
+def scope_cost_us(n: int = 10000) -> float:
+    """Host microseconds of one enter and exit of config.py::float32_exact,
+    the scope a float32 Trainer enters around each chunk, fit and report."""
+    from palette_and_histo_gan_tpu_torch.config import float32_exact
+
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with float32_exact():
+            pass
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
 def timed_row(r: dict) -> str:
     return (f"{r['ms_per_step']:.3f} / {r['device_ms_per_step']:.3f} / {r['img_per_s']:.1f} / "
             f"{100 * r['mfu']:.2f}%")
@@ -1794,11 +2052,16 @@ def main() -> int:
     hist = {"worst": phase_histogram_check(device), "times": phase_histogram_times(device)}
 
     for label in ("xla/tri", "pallas", "bwd=pallas"):
-        worst = phase_parity(device, dict(batch_size=4, **HIST_CONFIGS[label][0]))
+        worst = phase_parity(device, "histogram", dict(batch_size=4, **HIST_CONFIGS[label][0]))
         log("parity", f"{label}: worst relative loss difference {worst:.2e} (tol {PARITY_RTOL})")
+    baseline_parity = {variant: phase_parity(device, variant, dict(batch_size=4))
+                       for variant in BASELINE_VARIANTS}
+    log("parity", f"baseline variants: worst relative loss differences {baseline_parity} "
+        f"(tol {PARITY_RTOL})")
     bf16_parity = [
-        phase_parity(device, dict(batch_size=4, compute_dtype="bfloat16",
-                                  **HIST_CONFIGS["pallas2"][0]), BF16_PARITY_RTOL, seed)
+        phase_parity(device, "histogram", dict(batch_size=4, compute_dtype="bfloat16",
+                                               **HIST_CONFIGS["pallas2"][0]),
+                     BF16_PARITY_RTOL, seed)
         for seed in BF16_PARITY_SEEDS
     ]
     log("parity", f"pallas2 bfloat16, seeds {BF16_PARITY_SEEDS}: worst relative loss "
@@ -1806,15 +2069,18 @@ def main() -> int:
 
     launches = {}
     for label, (overrides, names) in HIST_CONFIGS.items():
-        counts = phase_main_path(device, dict(batch_size=4, **overrides), names)
+        counts = phase_main_path(device, "histogram", dict(batch_size=4, **overrides), names)
         if label == "xla/tri":
             launches.update(packed=counts["packed"], rgba=counts["rgba"])
         launches.update({name: counts[name] for name in names})
+    baseline_launches = {variant: phase_main_path(device, variant, dict(batch_size=4))
+                         for variant in BASELINE_VARIANTS}
 
     pal = phase_palette_check(device)
     worst = phase_indexed_parity(device)
     log("parity", f"indexed: worst relative loss difference {worst:.2e} (tol {PARITY_RTOL})")
     launches.update(phase_indexed_main_path(device))
+    dataset_root = phase_dataset_root(device)
     reference = phase_reference_weights(device)
 
     f32 = phase_timed_chunk(device, "histogram", "float32", dict(batch_size=4), steps=40)
@@ -1826,13 +2092,18 @@ def main() -> int:
                                  bf16_kernels=[n for n in names if n in BF16_LAUNCHES_A_STEP])
         for label, (overrides, names) in HIST_CONFIGS.items()
     }
+    baseline_bf16 = {variant: phase_timed_chunk(device, variant, "bfloat16",
+                                                dict(batch_size=1024), steps=10)
+                     for variant in BASELINE_VARIANTS}
     idx_f32 = phase_timed_chunk(device, "indexed", "float32", dict(batch_size=4), steps=40)
     idx_bf16 = phase_timed_chunk(device, "indexed", "bfloat16", dict(batch_size=1024), steps=10)
     fid_out, fid_evaluator = phase_fid(device, card)
     life, trained, bf16_trainer = phase_lifecycle(device, card, fid_evaluator)
     exp = phase_export(device, card, trained, bf16_trainer)
     dp = phase_data_parallel(device, card, fid_evaluator)
+    torchrun = phase_torchrun(device)
     experiment_s = phase_run_experiment(device)
+    scope_us = scope_cost_us()
     if "jax" in sys.modules:
         raise AssertionError("the port loaded jax")
 
@@ -1864,6 +2135,18 @@ def main() -> int:
         name = {"augment_packed": "packed"}.get(entry["name"], entry["name"])
         if dp["gloo"]["launches"].get(name):
             entry["dp_rank_launches"] = dp["gloo"]["launches"][name]
+    # the augment kernels' launches in the baseline main path (baseline-no-aug
+    # launched none: phase_main_path holds it to that)
+    for entry in kernels:
+        name = {"augment_packed": "packed", "augment_rgba": "rgba"}.get(entry["name"])
+        if name:
+            entry["baseline_launches"] = baseline_launches["baseline"][name]
+    # the launches of the CLI's dataset-root runs
+    for entry in kernels:
+        name = {"augment_packed": "packed"}.get(entry["name"], entry["name"])
+        counts = dataset_root["indexed" if name == "K5" else "histogram"]["launches"]
+        if counts.get(name):
+            entry["dataset_root_launches"] = counts[name]
     # the launches of the reference-weight phase's 4-step fit
     for entry in kernels:
         name = {"augment_packed": "packed"}.get(entry["name"], entry["name"])
@@ -1882,6 +2165,10 @@ def main() -> int:
         + f"; steps (host ms / device ms / img/s / MFU): histogram f32 b4 {timed_row(f32)} "
         + f"(pallas2 {timed_row(f32_pallas2)}); bf16 b1024 "
         + ", ".join(f"{label} {timed_row(r)} {r['peak_gib']:.2f} GiB" for label, r in bf16.items())
+        + "; bf16 b1024 " + ", ".join(f"{v} {timed_row(r)} {r['peak_gib']:.2f} GiB"
+                                      for v, r in baseline_bf16.items())
+        + f"; baseline parity (f32 b4, card vs CPU) "
+        + ", ".join(f"{v} {w:.2e}" for v, w in baseline_parity.items())
         + f"; indexed f32 b4 {timed_row(idx_f32)}, bf16 b1024 {timed_row(idx_bf16)} "
         + f"{idx_bf16['peak_gib']:.2f} GiB"
         + f"; bf16 parity (pallas2 b4, card vs CPU) {'/'.join(f'{w:.2e}' for w in bf16_parity)}"
@@ -1903,7 +2190,11 @@ def main() -> int:
         + f"{dp['nccl1']['allreduce_ms']:.4f} ms a step"
         + (f"; NCCL over {dp['cards']['world']} cards {dp['cards']['ms_per_step']:.3f} ms/step "
            f"{dp['cards']['img_per_s_card']:.1f} img/s a card" if "cards" in dp else "")
+        + f"; cli --data-root histogram {dataset_root['histogram']['seconds']:.1f} s, indexed "
+        + f"{dataset_root['indexed']['seconds']:.1f} s; torchrun x {torchrun['world']} "
+        + f"{torchrun['seconds']:.1f} s"
         + f"; run_experiment {experiment_s:.1f} s"
+        + f"; float32_exact {scope_us:.2f} us a scope (host)"
         + f"; smoke {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

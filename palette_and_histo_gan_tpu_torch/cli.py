@@ -51,7 +51,6 @@ from .config import (
     PALETTE_ORDERINGS,
     Config,
     config_for_variant,
-    set_f32_parity_mode,
 )
 
 HISTOGRAM_IMPLS = ("xla", "pallas", "pallas2")
@@ -175,9 +174,6 @@ def main(argv=None) -> int:
             "exclusive (a checkpoint restore would overwrite the import)"
         )
     config = config_from_args(args)
-    if config.compute_dtype == "float32":
-        # float32 means the reference's float32: no TF32 convolutions
-        set_f32_parity_mode()
 
     from .data import loader
     from .parallel import distributed

@@ -35,6 +35,7 @@ tensors; a CUDA batch always goes through the kernel, and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -306,6 +307,23 @@ def set_f32_parity_mode() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+@contextlib.contextmanager
+def float32_exact():
+    """`set_f32_parity_mode` inside the scope only: TF32 off for cuDNN
+    convolutions and cuBLAS matmuls, whatever the caller set; the caller's
+    settings come back after it. Every entry point runs its float32 work
+    under it (the Trainer, FID, serving, the weight converter's check)."""
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    matmul_precision = torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        torch.set_float32_matmul_precision(matmul_precision)
 
 
 def set_deterministic_mode() -> None:

@@ -29,12 +29,13 @@ import os
 
 import torch
 
-from .config import MODEL_VARIANTS, config_for_variant
+from .config import MODEL_VARIANTS, config_for_variant, float32_exact
 from .models import convert, networks
 
 
 def _verify(config, what: str, tree: dict, device: torch.device) -> None:
-    """Load `tree` into the port's network on `device`; one forward of zeros."""
+    """Load `tree` into the port's network on `device`; one float32 forward
+    of zeros, TF32 off (`float32_exact`)."""
     if what == "generator":
         module = networks.build_generator(config, torch.float32)
         module.load_state_dict(convert.generator_state_dict_from_flax(tree, module))
@@ -45,7 +46,7 @@ def _verify(config, what: str, tree: dict, device: torch.device) -> None:
         module.load_state_dict(convert.discriminator_state_dict_from_flax(tree, module))
         x = torch.zeros(1, 64, 64, config.discriminator_in_channels, device=device)
         forward = lambda m: m(x, x)
-    with torch.no_grad():
+    with float32_exact(), torch.no_grad():
         out = forward(module.to(device)).float().cpu()
     print(f"verify: {what} forward on {device} ok, output {tuple(out.shape)}, "
           f"finite={bool(torch.isfinite(out).all())}, max |out| {float(out.abs().max()):.6g}")

@@ -4,7 +4,8 @@ sample per epoch on the device.
 Mirrors palette_and_histo_gan_tpu/data/loader.py: the PNGs of
 <root>/<train|test>/<i-direction>/<n>.png decode once at start-up through
 the port's native decoder (native/png_io.py, built at first use) or, where
-it cannot be built, PIL; transparent pixels are blackened once.
+it cannot be built, PIL (without PIL the compiler's error is raised);
+transparent pixels are blackened once.
 
   * RGBA variants: the splits stay on the device as uint8 and the train
     step gathers its batch there (`datasets_from_arrays` hands the Trainer
@@ -35,7 +36,11 @@ def _decode_png(path: str) -> np.ndarray:
     arr = png_io.decode_png_rgba(path)
     if arr is not None:
         return arr
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        why = png_io.build_error() or "the native decoder does not read this PNG"
+        raise RuntimeError(f"cannot decode {path} without PIL: {why}") from e
 
     with Image.open(path) as im:
         return np.asarray(im.convert("RGBA"), dtype=np.uint8)

@@ -21,12 +21,12 @@ channels are kept.
 
 from __future__ import annotations
 
-import contextlib
 import os
 
 import numpy as np
 import torch
 
+from ..config import float32_exact
 from ..models import inception
 from ..native import png_io
 
@@ -64,21 +64,6 @@ def scale_images_nn(images: torch.Tensor, out_hw: int = 299,
 def preprocess_input(x: torch.Tensor) -> torch.Tensor:
     """keras inception_v3.preprocess_input (mode='tf'): x/127.5 - 1."""
     return x / 127.5 - 1.0
-
-
-@contextlib.contextmanager
-def float32_exact():
-    """TF32 off for cuDNN convolutions and cuBLAS matmuls inside the scope,
-    whatever the caller set; the caller's settings come back after it."""
-    cudnn_tf32 = torch.backends.cudnn.allow_tf32
-    matmul_precision = torch.get_float32_matmul_precision()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = cudnn_tf32
-        torch.set_float32_matmul_precision(matmul_precision)
 
 
 # ---------------------------------------------------------------------------

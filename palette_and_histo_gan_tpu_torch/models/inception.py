@@ -13,17 +13,19 @@ Conv2D/BatchNormalization pairs, so `units[k]` is the weight file's
 constructor runs it on meta tensors to create the units, the forward runs
 it again to apply them in the same order.
 
-Weights (`load_params`): the flat `.npz` that `PHG_INCEPTION_WEIGHTS` names
-(the layout of the JAX module's `convert_keras_model`, written by
-scripts/convert_inception.py), loaded strictly; with the variable unset, a
-He-normal initialization drawn with numpy from seed 0, the same on every
-device. The conversion from keras needs TensorFlow and is not part of the
-port.
+Weights (`load_params`): the flat `.npz` that `PHG_INCEPTION_WEIGHTS` names,
+loaded strictly; with the variable unset, a He-normal initialization drawn
+with numpy from seed 0, the same on every device. `convert_keras_model`
+writes that layout from a live keras InceptionV3, and
+`convert_keras_weights` from a keras notop weights file (the command
+`python -m palette_and_histo_gan_tpu_torch.convert_inception`); only the
+latter needs TensorFlow, which it imports when called.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Callable
 
 import numpy as np
@@ -231,3 +233,58 @@ def load_params(input_size: int = 299, device: torch.device | str = "cuda") -> I
         flat = random_flat_params(model)
     model.load_state_dict(inception_state_dict_from_flat(flat, model))
     return model.to(device).eval()
+
+
+def _layers_in_creation_order(keras_model, cls_name: str) -> list:
+    """Layers of one class sorted by the numeric suffix keras appends at
+    creation time ('conv2d', 'conv2d_1', ...: monotone in creation order
+    even when the session's name counters started above zero)."""
+    layers = [l for l in keras_model.layers if l.__class__.__name__ == cls_name]
+
+    def creation_index(layer):
+        m = re.search(r"_(\d+)$", layer.name)
+        return int(m.group(1)) if m else -1
+
+    return sorted(layers, key=creation_index)
+
+
+def convert_keras_model(keras_model) -> dict:
+    """The flat weight dict of `load_params` (params/ConvBN_k/...) from a
+    live keras InceptionV3 (include_top=False).
+
+    keras' inception_v3.conv2d_bn creates each Conv2D and its
+    BatchNormalization together, in the order `_graph` reaches its units,
+    so the k-th created pair is `units[k]`. Pairs are matched by the
+    creation index in the layer names, not by `model.layers`' topological
+    order."""
+    conv_layers = _layers_in_creation_order(keras_model, "Conv2D")
+    bn_layers = _layers_in_creation_order(keras_model, "BatchNormalization")
+    if len(conv_layers) != NUM_CONVBN or len(bn_layers) != NUM_CONVBN:
+        raise ValueError(
+            f"expected {NUM_CONVBN} Conv2D/BatchNormalization pairs, got "
+            f"{len(conv_layers)}/{len(bn_layers)}: not a notop InceptionV3?"
+        )
+    flat = {}
+    for k, (cl, bl) in enumerate(zip(conv_layers, bn_layers)):
+        prefix = f"params/ConvBN_{k}"
+        (kernel,) = cl.get_weights()  # use_bias=False in conv2d_bn
+        # BN has scale=False, center=True: its weights are [beta, mean, variance]
+        beta, mean, var = bl.get_weights()
+        if kernel.shape[-1] != beta.shape[0]:
+            raise ValueError(f"conv/bn channel mismatch at unit {k}: {cl.name} vs {bl.name}")
+        flat[f"{prefix}/Conv_0/kernel"] = kernel
+        flat[f"{prefix}/beta"] = beta
+        flat[f"{prefix}/mean"] = mean
+        flat[f"{prefix}/var"] = var
+    return flat
+
+
+def convert_keras_weights(h5_path: str, out_npz: str) -> None:
+    """Convert a keras InceptionV3 notop weights file on disk into the
+    `.npz` that `load_params` reads. Needs TensorFlow, imported here."""
+    import tensorflow as tf
+
+    keras_model = tf.keras.applications.InceptionV3(
+        include_top=False, pooling="avg", weights=h5_path
+    )
+    np.savez(out_npz, **convert_keras_model(keras_model))

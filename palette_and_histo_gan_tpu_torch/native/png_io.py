@@ -6,7 +6,7 @@ at the repository root, under a name that carries a hash of the source, so
 an edited source is rebuilt and an unchanged one loaded as it is. Every
 entry point returns None when the library cannot be built or loaded (no
 compiler, no zlib) or a file is a format it does not decode; the callers
-then decode with PIL.
+then decode with PIL. `build_error` says why the library is missing.
 """
 
 from __future__ import annotations
@@ -30,18 +30,20 @@ CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _lib = None
 _tried = False
+_error = None  # why the library could not be built
 
 
-def _build() -> str | None:
-    """Path of the built library, compiling it if needed; None on failure."""
+def _build() -> tuple[str | None, str | None]:
+    """(path of the built library, compiling it if needed, None); on
+    failure (None, why)."""
     compiler = shutil.which("g++")
     if compiler is None:
-        return None
+        return None, "no g++ on PATH"
     with open(SOURCE, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
     target = os.path.join(BUILD_DIR, f"libphg_png-{digest}.so")
     if os.path.exists(target):
-        return target
+        return target, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     # compile to a private file and rename, so concurrent builds never load
     # a half-written library
@@ -52,17 +54,17 @@ def _build() -> str | None:
     )
     if proc.returncode != 0:
         os.unlink(tmp)
-        return None
+        return None, f"g++ exited {proc.returncode}:\n{proc.stderr.strip()}"
     os.replace(tmp, target)
-    return target
+    return target, None
 
 
 def _load():
-    global _lib, _tried
+    global _lib, _tried, _error
     if _tried:
         return _lib
     _tried = True
-    path = _build()
+    path, _error = _build()
     if path is None:
         return None
     lib = ctypes.CDLL(path)
@@ -77,6 +79,12 @@ def _load():
     lib.phg_decode_folder.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def build_error() -> str | None:
+    """Why the library could not be built (the compiler's stderr), or None
+    when it loaded or was not needed yet."""
+    return _error
 
 
 def decode_png_rgba(path: str, h: int = 64, w: int = 64) -> np.ndarray | None:

@@ -24,7 +24,7 @@ import time
 
 import torch
 
-from .config import MODEL_VARIANTS, config_for_variant, set_f32_parity_mode
+from .config import MODEL_VARIANTS, config_for_variant
 from .utils import profiling
 
 
@@ -50,8 +50,6 @@ def main(argv=None) -> int:
         args.model, batch_size=args.batch_size, compute_dtype=args.compute_dtype,
         histogram_impl=args.histogram_impl, temp_folder="build/profile_step",
     )
-    if config.compute_dtype == "float32":
-        set_f32_parity_mode()
     device = torch.device("cuda", 0)
     if config.is_indexed:
         datasets = loader.indexed_datasets_from_arrays(

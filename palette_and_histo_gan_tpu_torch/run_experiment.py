@@ -20,7 +20,7 @@ import argparse
 
 import torch
 
-from .config import DIRECTIONS, MODEL_VARIANTS, config_for_variant, set_f32_parity_mode
+from .config import DIRECTIONS, MODEL_VARIANTS, config_for_variant
 
 CALLBACKS = ["show_discriminator_output", "evaluate_fid", "evaluate_l1"]
 
@@ -63,7 +63,6 @@ def main(argv=None) -> int:
         # the CLI's default: the tensor-core histogram kernels on a card
         histogram_impl="pallas2" if device.type == "cuda" else "xla",
     )
-    set_f32_parity_mode()  # the reference's float32: no TF32 convolutions
     print(f"Model: {config.model}  architecture: {config.architecture_name}  "
           f"palette ordering: {config.palette_ordering}")
 

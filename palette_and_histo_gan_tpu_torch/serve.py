@@ -13,6 +13,8 @@ Counterpart of examples/serve_exported.py. Two commands:
 
 `serve` uses only models/export.py::load_exported: the program runs on the
 device it was exported on (`--device` of `export`, the card by default).
+The programs take float32, and both commands run them under
+config.py::float32_exact: no TF32, whatever the caller set.
 An exported program has a fixed batch: the last batch is padded with
 copies of its first image and the padding is dropped. Outputs are
 quantized as ((fake + 1) * 127.5) clipped to [0, 255] and truncated, and
@@ -27,7 +29,7 @@ import os
 import numpy as np
 import torch
 
-from .config import MODEL_VARIANTS, config_for_variant
+from .config import MODEL_VARIANTS, config_for_variant, float32_exact
 from .models import export as export_mod
 from .native import png_io
 from .utils import visualization as viz
@@ -44,7 +46,8 @@ def do_export(args) -> None:
         if manager.latest_step() is None:
             raise SystemExit(f"no checkpoint under {manager.directory}")
         print(f"restored the checkpoint of step {manager.restore(state).step}")
-    program = export_mod.export_generator(config, state.generator, args.batch_size)
+    with float32_exact():
+        program = export_mod.export_generator(config, state.generator, args.batch_size)
     torch.export.save(program, args.out)
     print(f"exported the {args.model} generator ({os.path.getsize(args.out)} bytes) "
           f"-> {args.out}")
@@ -93,7 +96,7 @@ def do_serve(args) -> int:
     os.makedirs(args.output_dir, exist_ok=True)
     done = 0
     for chunk, n_real in padded_batches(source, batch):
-        with torch.inference_mode():
+        with float32_exact(), torch.inference_mode():
             fake = infer(torch.from_numpy(chunk).to(device)).float().cpu().numpy()[:n_real]
         fake_u8 = ((fake + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
         for img in fake_u8:

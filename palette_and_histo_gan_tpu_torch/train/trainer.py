@@ -32,11 +32,20 @@ runs the chunks, the previews and the L1 and FID reports, which hold
 collectives, and only rank 0 writes: TensorBoard events, PNGs, weight
 files, checkpoints and the console. Restores and weight loads read the
 file on every rank and end with rank 0's state on all of them.
+
+Float32 is the reference's float32 (config.py): under a float32 config the
+Trainer runs its work (the chunks, the data-parallel chunk included, fit
+with its previews, patch maps and reports, the L1 and FID reports, the
+image dumps) under config.py::float32_exact, so cuDNN and cuBLAS take no
+TF32 whatever the caller set, and the caller's settings come back after
+each call. A bfloat16 config runs as the caller set: TF32 touches only
+float32 products.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import Sequence
@@ -44,7 +53,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..config import Config, check_supported
+from ..config import Config, check_supported, float32_exact
 from ..data.loader import IndexedDataset, RgbaDataset, make_indexed_datasets, make_rgba_datasets
 from ..eval import metrics as eval_metrics
 from ..eval.fid import FidEvaluator
@@ -129,6 +138,30 @@ def preview_seed(seed: int, step: int) -> int:
     return int(entropy.generate_state(1, np.uint64)[0])
 
 
+def _under_float32_exact(config: Config, fn):
+    """`fn`, run under float32_exact when `config` computes in float32."""
+    if config.compute_dtype != "float32":
+        return fn
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with float32_exact():
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def _float32_work(method):
+    """A Trainer method, run under float32_exact when the Trainer's config
+    computes in float32."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        return _under_float32_exact(self.config, method)(self, *args, **kwargs)
+
+    return run
+
+
 class Trainer:
     """Training loop of any variant on one explicit device, or on this
     rank's device of a data-parallel group (`data_group`).
@@ -180,18 +213,20 @@ class Trainer:
             f"{param_count(self.state.discriminator):,} parameters"
         )
         if self.group is None:
-            self.train_chunk = make_train_chunk(config, self.train_ds.n, config.seed)
+            chunk = make_train_chunk(config, self.train_ds.n, config.seed)
             self.generate_fn = generate
         else:
             replicate_state(self.group, self.state)
-            self.train_chunk = make_dp_train_chunk(config, self.group, self.train_ds.n,
-                                                   config.seed)
+            chunk = make_dp_train_chunk(config, self.group, self.train_ds.n, config.seed)
             self.generate_fn = make_dp_generate_fn(self.group)
             self.say(
                 f"Data parallel over {self.group.world_size} ranks "
                 f"({torch.distributed.get_backend()}): batch {config.batch_size} -> "
                 f"{config.batch_size // self.group.world_size} a rank"
             )
+        # a closure over the chunk, not over self: a Trainer dropped by its
+        # caller frees its device memory without waiting for the cyclic GC
+        self.train_chunk = _under_float32_exact(config, chunk)
         self.manager = ckpt.make_manager(config)
         self.saver = ckpt.AsyncSaver(self.manager) if self.writes else _NullSaver()
         self.fid = fid_evaluator
@@ -239,6 +274,7 @@ class Trainer:
         return gen
 
     # ----------------------------------------------------------------------
+    @_float32_work
     def fit(self, steps: int | None = None, update_steps: int | None = None,
             callbacks: Sequence[str] = (), starting_step: int = 0):
         config = self.config
@@ -354,6 +390,7 @@ class Trainer:
             for i in range(min(num, ds.n))
         ]
 
+    @_float32_work
     @torch.no_grad()
     def preview_generated_images(self, examples, save_name=None, step=None) -> np.ndarray:
         """The [Input, Target, Generated] grid of `examples` (tuples from
@@ -376,6 +413,7 @@ class Trainer:
         return viz.preview_grid(src.cpu().numpy(), tgt.cpu().numpy(),
                                 fake.float().cpu().numpy(), save_name, step)
 
+    @_float32_work
     @torch.no_grad()
     def show_discriminated_images(self, dataset_name: str = "test", num_images: int = 2,
                                   save_prefix: str | None = None) -> list[np.ndarray]:
@@ -415,6 +453,7 @@ class Trainer:
         return outputs
 
     # -- evaluation ---------------------------------------------------------
+    @_float32_work
     def report_l1(self, num_images: int | None = None, step: int | None = None):
         """(train, test) L1 over the first num_images of each split
         (default: the test split's size)."""
@@ -433,6 +472,7 @@ class Trainer:
             )
         return values
 
+    @_float32_work
     def report_fid(self, num_images: int | None = None, step: int | None = None):
         """(train, test) FID between the first num_images targets of each
         split and their translations (default: the test split's size). The
@@ -455,6 +495,7 @@ class Trainer:
         return values[0], values[1]
 
     # -- image dumps (side2side_model.py:202-222) ---------------------------
+    @_float32_work
     def generate_images_from_dataset(self, dataset_name: str = "test",
                                      num_images: int | None = None, steps=None) -> str:
         """One [Input, Target, Generated] PNG per pair of a split, 0.png

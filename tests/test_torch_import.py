@@ -1,13 +1,14 @@
 """The PyTorch port runs without JAX and without the JAX package.
 
 * In a fresh interpreter: import the port (with its FID, export,
-  serving, experiment, weight-conversion, FLOP-count and profiling
-  modules), train one step of a narrow histogram-variant Trainer and one
+  serving, experiment, weight-conversion, Inception-conversion, FLOP-count
+  and profiling modules), train one step of a narrow histogram-variant Trainer and one
   of a narrow indexed Trainer on the CPU (the plain augmentation and the
   plain palette index, since the tensors lie on the CPU), convert a keras
   discriminator archive with its CPU forward, and check that neither
-  `jax` nor any module of `palette_and_histo_gan_tpu` was loaded and that
-  no CUDA kernel was launched.
+  `jax` nor any module of `palette_and_histo_gan_tpu` was loaded, nor
+  TensorFlow (only the Inception conversion imports it, when it runs),
+  and that no CUDA kernel was launched.
 * An AST scan of the port's sources and of chip_smoke.py finds no import
   of the JAX package or of JAX.
 """
@@ -28,7 +29,8 @@ PROGRAM = textwrap.dedent(
     import json, math, sys
 
     import palette_and_histo_gan_tpu_torch as port
-    from palette_and_histo_gan_tpu_torch import convert_weights, run_experiment, serve
+    from palette_and_histo_gan_tpu_torch import (
+        convert_inception, convert_weights, run_experiment, serve)
     from palette_and_histo_gan_tpu_torch.data import loader
     from palette_and_histo_gan_tpu_torch.eval import fid
     from palette_and_histo_gan_tpu_torch.models import export, inception
@@ -59,8 +61,8 @@ PROGRAM = textwrap.dedent(
                                  "--verify", "--device", "cpu"]) == 0
     loaded = sorted(
         m for m in sys.modules
-        if m in ("jax", "palette_and_histo_gan_tpu")
-        or m.startswith(("jax.", "palette_and_histo_gan_tpu."))
+        if m in ("jax", "palette_and_histo_gan_tpu", "tensorflow")
+        or m.startswith(("jax.", "palette_and_histo_gan_tpu.", "tensorflow."))
     )
     print(json.dumps({
         "loaded": loaded,
