@@ -8,9 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; exits 1 without a CUDA device.
   2. build: compiles the fused augmentation kernel (csrc/augment.cu), the
-     fused histogram kernels (csrc/histogram.cu) and the palette index
-     kernel (csrc/palette.cu) with nvcc for sm_90a from this checkout, the
-     three nvcc processes at once; prints ptxas' registers and spills of
+     fused histogram kernels (csrc/histogram.cu), the palette index
+     kernel (csrc/palette.cu) and the InstanceNorm moments kernel
+     (csrc/moments.cu) with nvcc for sm_90a from this checkout, the four
+     nvcc processes at once; prints ptxas' registers and spills of
      the tensor-core kernels (the histogram forwards in float32, 3xTF32,
      and bfloat16, the bfloat16 backward) and of the float32 backward, and
      counts the HGMMA (wgmma) instructions of the first three in the
@@ -64,6 +65,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      exact int32 equality; at least one label past 255 and at least one
      truncated palette. Times both with CUDA events, plain, kernel,
      kernel, plain.
+  7a. InstanceNorm moments (phase_in_stats): kernel K6 against its plain
+     version, within MOMENTS_RTOL (1e-5) of each output's largest |plain
+     value|, at the A/B's four bfloat16 B=1024 decoder shapes, float32 B=4
+     at the generator's InstanceNorm shapes and B=5 (no multiple of 8) in
+     both dtypes, each contiguous (NCHW) and channels_last (NHWC), the
+     outputs' memory filled with NaN first and two launches bit-equal;
+     its launches equal to the calls made. Then its main path, the A/B of
+     bench_in_stats.py (the networks' two reductions, the ones contraction
+     on cuBLAS, K6) at the four shapes in both layouts, with K6's launches
+     counted around it; K6 and its plain version timed at the largest
+     NCHW shape; the networks' statistics and K6 at b1024 bfloat16 at each
+     InstanceNorm input of the generator, in the layout the card's
+     networks hold it.
   8. indexed parity: two full-width float32 indexed steps on the card
      against the same steps on the CPU, from the same weights on the same
      index maps, deterministic dropout; the generator's argmax maps agree
@@ -164,7 +178,11 @@ K4b and K4c the tensor-core kernels' launches in the b1024 bf16 chunks
 phase (lifecycle_launches), K1, K3b and K4b a data-parallel rank's in
 part 1 of the data-parallel phase (dp_rank_launches); K1 and K2 their
 launches on baseline's main path (baseline_launches); K1, K3b, K4b and
-K5 theirs in the CLI's dataset-root runs (dataset_root_launches).
+K5 theirs in the CLI's dataset-root runs (dataset_root_launches). K6, at
+MOMENTS_ENTRY_ROW, its launches those of the A/B, gives the A/B's forms A
+and B at that row (ab_ms), every A/B row (ab_rows) and the generator's
+InstanceNorm inputs at b1024 with form A's and K6's times
+(instance_norm_step).
 """
 
 from __future__ import annotations
@@ -191,19 +209,16 @@ PARITY_RTOL = 1e-3
 # HBM3, 700 W)
 BF16_PARITY_RTOL = 1e-2
 BF16_PARITY_SEEDS = (SEED, SEED + 1, SEED + 2)
-SOURCE = "palette_and_histo_gan_tpu_torch/csrc/augment.cu"
-REPLACES = {
-    "packed": "palette_and_histo_gan_tpu/ops/augment_pallas.py:273",
-    "rgba": "palette_and_histo_gan_tpu/ops/augment_pallas.py:119",
-}
-HIST_SOURCE = "palette_and_histo_gan_tpu_torch/csrc/histogram.cu"
-# TPU kernel -> (direction, its body, the chains its configuration runs)
+# the augment kernel entries and the TPU kernels they replace (each
+# kernel's source and TPU body: palette_and_histo_gan_tpu_torch/kernels/table.py)
+AUGMENT_KERNELS = {"packed": "K1", "rgba": "K2"}
+# TPU kernel -> (direction, the chains its configuration runs)
 HIST_KERNELS = {
-    "K3a": ("fwd", "palette_and_histo_gan_tpu/ops/histogram_pallas.py:76", ("float32",)),
-    "K3b": ("fwd", "palette_and_histo_gan_tpu/ops/histogram_pallas2.py:42", ("float32", "bfloat16")),
-    "K4a": ("bwd", "palette_and_histo_gan_tpu/ops/histogram_pallas.py:125", ("float32",)),
-    "K4b": ("bwd", "palette_and_histo_gan_tpu/ops/histogram_pallas2.py:99", ("float32", "bfloat16")),
-    "K4c": ("bwd", "palette_and_histo_gan_tpu/ops/histogram_pallas3.py:63", ("float32", "bfloat16")),
+    "K3a": ("fwd", ("float32",)),
+    "K3b": ("fwd", ("float32", "bfloat16")),
+    "K4a": ("bwd", ("float32",)),
+    "K4b": ("bwd", ("float32", "bfloat16")),
+    "K4c": ("bwd", ("float32", "bfloat16")),
 }
 # kernel vs plain, as a fraction of the largest |plain value|:
 #  * float32: the same elementwise chain op for op. Forward: the kernel's
@@ -237,8 +252,6 @@ HIST_CONFIGS = {
     "pallas2": ({"histogram_impl": "pallas2"}, ("K3b", "K4b")),
     "bwd=pallas": ({"histogram_bwd": "pallas"}, ("K4c",)),
 }
-PAL_SOURCE = "palette_and_histo_gan_tpu_torch/csrc/palette.cu"
-PAL_REPLACES = "palette_and_histo_gan_tpu/ops/palette_pallas.py:26"
 ARGMAX_AGREEMENT = 0.999
 # the RGBA variants without the histogram: baseline augments (K1, K2),
 # baseline-no-aug only normalizes (no kernel)
@@ -499,7 +512,7 @@ def phase_histogram_check(device) -> dict:
             if not torch.equal(first, again):
                 raise AssertionError(f"the split float32 forward differs between launches: B={b} HW={hw}")
             log("hist", f"K3a B={b} HW={hw}: two launches of the split forward give the same bits")
-        for name, (direction, _, chains) in HIST_KERNELS.items():
+        for name, (direction, chains) in HIST_KERNELS.items():
             for chain in chains:
                 for method in ("inverse-quadratic", "RBF") if b == 4 else ("inverse-quadratic",):
                     got = histogram_call(name, chain, logs, iy, g, method)
@@ -531,7 +544,7 @@ def phase_histogram_times(device) -> dict:
     times = {}
     for b, compute, iters, plain_iters in ((1024, "bfloat16", 20, 3), (4, "float32", 200, 20)):
         logs, iy, g = histogram_inputs(b, device, SEED)
-        for name, (_, _, chains) in HIST_KERNELS.items():
+        for name, (_, chains) in HIST_KERNELS.items():
             chain = compute if compute in chains else "float32"
 
             def kern():
@@ -739,6 +752,125 @@ def phase_palette_check(device) -> dict:
             f"plain {p1:.4f} / {p2:.4f} ms")
     log("palette", f"{truncated} of {src.shape[0]} pairs have more than 256 colours (truncated)")
     return out
+
+
+# K6 against its plain version, per output, as a fraction of its largest
+# |plain value| (HIST_TOL's float32 forward): both upcast to float32 and
+# square there; the plain version sums each row in float64 and rounds once,
+# the kernel sums in float32 in its own fixed order
+MOMENTS_RTOL = 1e-5
+# the A/B row whose K6 time the kernels line gives: the largest decoder
+# shape, as the networks' contiguous tensors hold it
+MOMENTS_ENTRY_ROW = ((1024, 32, 64, 64), "nchw")
+MOMENTS_STEP_BATCH = 1024  # the throughput regime's batch
+
+
+def moments_cases(device, gen_shapes):
+    """(what, tensor) of each K6 check: the A/B's bfloat16 shapes in both
+    layouts, float32 B=4 at the generator's InstanceNorm shapes and B=5
+    (no multiple of 8) in both dtypes, in both layouts, seeded."""
+    from palette_and_histo_gan_tpu_torch import bench_in_stats as ab
+
+    shapes = [(shape, "bfloat16") for shape in ab.SHAPES]
+    shapes += [((4, *shape[1:]), "float32") for shape in gen_shapes]
+    shapes += [((5, *shape[1:]), dtype) for shape in ab.SHAPES for dtype in ("bfloat16", "float32")]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for shape, dtype in shapes:
+        x = torch.randn(shape, generator=gen, device=device).to(getattr(torch, dtype))
+        for layout, fmt in (("nchw", torch.contiguous_format), ("nhwc", torch.channels_last)):
+            yield f"{dtype} {shape} {layout}", x.contiguous(memory_format=fmt)
+
+
+def phase_in_stats(device) -> dict:
+    """K6 against its plain version on every case of moments_cases (its
+    outputs' memory filled with NaN first, so a row the kernel skips shows;
+    two launches bit-equal); the launches counted and equal to the calls
+    made. Then the A/B of the InstanceNorm statistics
+    (bench_in_stats.py), its launches counted around it: the main path of
+    K6. Then K6 and its plain version timed at MOMENTS_ENTRY_ROW, and form A
+    (the networks' statistics) and K6 at b1024 bfloat16 at each of the
+    generator's InstanceNorm inputs, in the layout the card's networks
+    hold them."""
+    from palette_and_histo_gan_tpu_torch import bench_in_stats as ab
+    from palette_and_histo_gan_tpu_torch.ops import moments as mo
+
+    inputs = ab.instance_norm_inputs(2, torch.bfloat16, device)
+    log("in_stats", "the bfloat16 generator's InstanceNorm inputs on the card: "
+        + ", ".join(f"{shape[1:]} {layout}" for shape, layout in inputs))
+    mo.reset_launches()
+    calls, worst = 0, 0.0
+    for what, x in moments_cases(device, [shape for shape, _ in inputs]):
+        b, c = x.shape[:2]
+        # NaN in the blocks the kernel's two (b, c) outputs will reuse once freed
+        poison = [torch.full((b, c), float("nan"), device=device) for _ in range(2)]
+        del poison
+        got, again = mo.moments_cuda(x), mo.moments_cuda(x)
+        calls += 2
+        want = mo.moments_plain(x)
+        torch.cuda.synchronize()
+        for name, g, a, w in zip(("mean", "mean2"), got, again, want):
+            err = float((g - w).abs().max())
+            if not (g.shape == (b, c) and g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+                    and err <= MOMENTS_RTOL * float(w.abs().max())):
+                raise AssertionError(f"K6 {what} {name}: max abs err {err:.3e} against "
+                                     f"{MOMENTS_RTOL} x {float(w.abs().max()):.4f}")
+            if not torch.equal(g, a):
+                raise AssertionError(f"K6 {what} {name}: two launches differ")
+            worst = max(worst, err)
+    if mo.launches["K6"] != calls:
+        raise AssertionError(f"K6 launched {mo.launches['K6']} times for {calls} calls")
+    log("in_stats", f"K6 == plain within {MOMENTS_RTOL} of the largest value on {calls // 2} "
+        f"cases (worst abs err {worst:.3e}), two launches bit-equal, every row written")
+
+    mo.reset_launches()
+    rows = [ab.ab_row(shape, layout, device) for shape in ab.SHAPES for layout in ab.LAYOUTS]
+    launches = mo.launches["K6"]
+    if launches != sum(r["C_calls"] for r in rows) or launches == 0:
+        raise AssertionError(f"the A/B launched K6 {launches} times for "
+                             f"{sum(r['C_calls'] for r in rows)} calls of its form C")
+    for r in rows:
+        log("in_stats", f"A/B {tuple(r['shape'])} {r['layout']}: floor {r['floor_ms']:.4f} ms; "
+            f"marginal A {r['A_ms']:.4f} / B {r['B_ms']:.4f} / K6 {r['C_ms']:.4f} ms; events "
+            f"A {r['A_event_ms']:.4f} / B {r['B_event_ms']:.4f} / K6 {r['C_event_ms']:.4f} ms "
+            f"({100 * r['floor_ms'] / r['C_event_ms']:.1f}% of the floor); device A "
+            f"{r['A_device_ms']:.4f} / B {r['B_device_ms']:.4f} / K6 {r['C_device_ms']:.4f} ms "
+            f"({100 * r['floor_ms'] / r['C_device_ms']:.1f}%); A vs K6 {r['A_vs_C']:.2e} "
+            f"(mean2), B vs K6 {r['B_vs_C']:.2e}; B output {r['B_output']}; pool {r['pool']}")
+
+    shape, layout = MOMENTS_ENTRY_ROW
+    pool = ab.make_pool(shape, layout, device)
+    p1 = ab.event_ms(mo.moments_plain, pool, 10)
+    k1, k2 = ab.event_ms(mo.moments_cuda, pool), ab.event_ms(mo.moments_cuda, pool)
+    p2 = ab.event_ms(mo.moments_plain, pool, 10)
+    row = next(r for r in rows if tuple(r["shape"]) == shape and r["layout"] == layout)
+    # the bytes (input read once, two float32 outputs written once) and an
+    # add and a multiply-add an element in float32
+    times = ((k1 + k2) / 2, (p1 + p2) / 2,
+             *bound(row["bytes"], (3 * math.prod(shape), "float32")))
+    log("in_stats", f"K6 {shape} {layout}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
+    del pool
+
+    # the networks' statistics (form A) and K6 at b1024 at each InstanceNorm
+    # input of the generator, in the card's layout: what K6 under
+    # InstanceNorm could save a step at most
+    step = []
+    for (_, *chw), layout in inputs:
+        shape = (MOMENTS_STEP_BATCH, *chw)
+        pool = ab.make_pool(shape, "nhwc" if layout == "nhwc" else "nchw", device)
+        step.append({"shape": list(shape), "layout": layout,
+                     "A_ms": ab.event_ms(ab.stats_torch, pool), "K6_ms": ab.event_ms(mo.moments_cuda, pool),
+                     "A_device_ms": ab.device_ms(ab.stats_torch, pool),
+                     "K6_device_ms": ab.device_ms(mo.moments_cuda, pool)})
+        del pool
+    total = {key: sum(r[key] for r in step) for key in ("A_ms", "K6_ms", "A_device_ms", "K6_device_ms")}
+    log("in_stats", f"b{MOMENTS_STEP_BATCH} bf16 step: {len(step)} InstanceNorm statistics; form A "
+        f"{total['A_ms']:.4f} ms (events) / {total['A_device_ms']:.4f} ms (device), K6 {total['K6_ms']:.4f} / "
+        f"{total['K6_device_ms']:.4f} ms in all: K6 under InstanceNorm saves at most "
+        f"{total['A_device_ms'] - total['K6_device_ms']:.4f} ms of device time a step")
+    torch.cuda.empty_cache()
+    return {"worst": worst, "launches": launches, "rows": rows, "step": step,
+            "times": times,
+            "ab_ms": {"A": row["A_event_ms"], "B": row["B_event_ms"]}}
 
 
 def phase_indexed_parity(device) -> float:
@@ -1933,18 +2065,20 @@ def phase_data_parallel(device, card: str, fid_evaluator) -> dict:
 
 
 LIBRARIES = (("phg_augment", "augment.cu"), ("phg_histogram", "histogram.cu"),
-             ("phg_palette", "palette.cu"))
+             ("phg_palette", "palette.cu"), ("phg_moments", "moments.cu"))
 
 
 def build_kernels() -> None:
-    """The three libraries, with their nvcc processes at once."""
+    """The four libraries, with their nvcc processes at once."""
     from concurrent.futures import ThreadPoolExecutor
 
     from palette_and_histo_gan_tpu_torch.kernels import build
-    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, histogram_kernel, palette_kernel
+    from palette_and_histo_gan_tpu_torch.ops import (augment_kernel, histogram_kernel, moments,
+                                                     palette_kernel)
 
     t0 = time.perf_counter()
-    loaders = (augment_kernel.library, histogram_kernel.library, palette_kernel.library)
+    loaders = (augment_kernel.library, histogram_kernel.library, palette_kernel.library,
+               moments.library)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for job in [pool.submit(f) for f in loaders]:
             job.result()
@@ -2021,13 +2155,17 @@ def timed_row(r: dict) -> str:
             f"{100 * r['mfu']:.2f}%")
 
 
-def kernel_entry(name, source, replaces, launches, max_abs_err, times) -> dict:
-    """One entry of the kernels line; `times` is (kernel ms, plain ms,
-    bound ms, what bounds it). No single PyTorch call computes any of these
-    functions, so library_ms is null."""
+def kernel_entry(name, kernel, launches, max_abs_err, times) -> dict:
+    """One entry of the kernels line for TPU kernel `kernel` (its source and
+    the TPU body it replaces from kernels/table.py); `times` is (kernel ms,
+    plain ms, bound ms, what bounds it). No single PyTorch call computes
+    any of these functions, so library_ms is null."""
+    from palette_and_histo_gan_tpu_torch.kernels.table import BY_NAME
+
     ms, plain_ms, bound_ms, bound_by = times
     return {
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "name": name, "route": "cuda", "source": BY_NAME[kernel].source,
+        "replaces": BY_NAME[kernel].body,
         "launches": launches, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
@@ -2077,6 +2215,7 @@ def main() -> int:
                          for variant in BASELINE_VARIANTS}
 
     pal = phase_palette_check(device)
+    in_stats = phase_in_stats(device)
     worst = phase_indexed_parity(device)
     log("parity", f"indexed: worst relative loss difference {worst:.2e} (tol {PARITY_RTOL})")
     launches.update(phase_indexed_main_path(device))
@@ -2108,21 +2247,19 @@ def main() -> int:
         raise AssertionError("the port loaded jax")
 
     kernels = [
-        kernel_entry(f"augment_{entry}", SOURCE, REPLACES[entry], launches[entry],
+        kernel_entry(f"augment_{entry}", kernel, launches[entry],
                      kern["worst"][entry], kern["times"][(entry, 1024)])
-        for entry in ("packed", "rgba")
+        for entry, kernel in AUGMENT_KERNELS.items()
     ]
     kernels += [
-        kernel_entry(name, HIST_SOURCE, replaces, launches[name], hist["worst"][name],
-                     hist["times"][(name, 1024)])
-        for name, (_, replaces, _) in HIST_KERNELS.items()
+        kernel_entry(name, name, launches[name], hist["worst"][name], hist["times"][(name, 1024)])
+        for name in HIST_KERNELS
     ]
     # the tensor-core kernels run in the b1024 bf16 chunks
     for entry in kernels:
         if entry["name"] in BF16_LAUNCHES_A_STEP:
             entry["bf16_launches"] = sum(r["bf16_launches"][entry["name"]] for r in bf16.values())
-    kernels.append(kernel_entry("K5", PAL_SOURCE, PAL_REPLACES, launches["K5"], 0,
-                                pal["times"][pal["n_images"]]))
+    kernels.append(kernel_entry("K5", "K5", launches["K5"], 0, pal["times"][pal["n_images"]]))
     # the launches of the lifecycle phase's uninterrupted histogram run and
     # of its indexed run
     for entry in kernels:
@@ -2155,6 +2292,19 @@ def main() -> int:
     # K3a beside the bound of its products as float32 FMAs
     k3a = next(e for e in kernels if e["name"] == "K3a")
     k3a["bound_f32_fma_ms"] = hist["times"][("K3a fma", 1024)][0]
+    # K6 at MOMENTS_ENTRY_ROW, its launches those of the A/B; beside it the
+    # A/B's forms A and B at that row, every A/B row, and what K6 under the
+    # networks' InstanceNorm could save a b1024 step at most
+    k6 = kernel_entry("K6", "K6", in_stats["launches"], in_stats["worst"], in_stats["times"])
+    k6["ab_ms"] = in_stats["ab_ms"]
+    k6["ab_rows"] = [
+        {key: r[key] for key in ("shape", "layout", "floor_ms", "A_event_ms", "B_event_ms",
+                                 "C_event_ms", "A_device_ms", "B_device_ms", "C_device_ms",
+                                 "A_ms", "B_ms", "C_ms", "B_output")}
+        for r in in_stats["rows"]
+    ]
+    k6["instance_norm_step"] = in_stats["step"]
+    kernels.append(k6)
     log("summary", f"{card}: b4 kernel/plain ms "
         + ", ".join(f"{e} {kern['times'][(e, 4)][0]:.4f}/{kern['times'][(e, 4)][1]:.4f}" for e in ("packed", "rgba"))
         + ", " + ", ".join(f"{n} {hist['times'][(n, 4)][0]:.4f}/{hist['times'][(n, 4)][1]:.4f}" for n in HIST_KERNELS)
@@ -2162,6 +2312,9 @@ def main() -> int:
         + f"; K3a b1024 {k3a['ms']:.4f} ms: {100 * k3a['bound_ms'] / k3a['ms']:.1f}% of its 3xTF32 bound "
         + f"{k3a['bound_ms']:.4f} ms, {100 * k3a['bound_f32_fma_ms'] / k3a['ms']:.1f}% of the float32-FMA "
         + f"bound {k3a['bound_f32_fma_ms']:.4f} ms"
+        + f"; K6 {MOMENTS_ENTRY_ROW[0]} {MOMENTS_ENTRY_ROW[1]} {k6['ms']:.4f} ms, "
+        + f"{100 * k6['bound_ms'] / k6['ms']:.1f}% of its bytes bound {k6['bound_ms']:.4f} ms (A "
+        + f"{k6['ab_ms']['A']:.4f}, B {k6['ab_ms']['B']:.4f} ms)"
         + f"; steps (host ms / device ms / img/s / MFU): histogram f32 b4 {timed_row(f32)} "
         + f"(pallas2 {timed_row(f32_pallas2)}); bf16 b1024 "
         + ", ".join(f"{label} {timed_row(r)} {r['peak_gib']:.2f} GiB" for label, r in bf16.items())

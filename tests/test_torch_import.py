@@ -1,11 +1,12 @@
 """The PyTorch port runs without JAX and without the JAX package.
 
 * In a fresh interpreter: import the port (with its FID, export,
-  serving, experiment, weight-conversion, Inception-conversion, FLOP-count
-  and profiling modules), train one step of a narrow histogram-variant Trainer and one
+  serving, experiment, weight-conversion, Inception-conversion, FLOP-count,
+  profiling, InstanceNorm-moments (K6), A/B and kernel-table modules), train one step of a narrow histogram-variant Trainer and one
   of a narrow indexed Trainer on the CPU (the plain augmentation and the
   plain palette index, since the tensors lie on the CPU), convert a keras
-  discriminator archive with its CPU forward, and check that neither
+  discriminator archive with its CPU forward, take K6's moments of a CPU
+  tensor (its plain version), and check that neither
   `jax` nor any module of `palette_and_histo_gan_tpu` was loaded, nor
   TensorFlow (only the Inception conversion imports it, when it runs),
   and that no CUDA kernel was launched.
@@ -30,11 +31,12 @@ PROGRAM = textwrap.dedent(
 
     import palette_and_histo_gan_tpu_torch as port
     from palette_and_histo_gan_tpu_torch import (
-        convert_inception, convert_weights, run_experiment, serve)
+        bench_in_stats, convert_inception, convert_weights, run_experiment, serve)
     from palette_and_histo_gan_tpu_torch.data import loader
     from palette_and_histo_gan_tpu_torch.eval import fid
     from palette_and_histo_gan_tpu_torch.models import export, inception
-    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, palette_kernel
+    from palette_and_histo_gan_tpu_torch.kernels import table
+    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, moments, palette_kernel
     from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
     from palette_and_histo_gan_tpu_torch.utils import flops, profiling
 
@@ -59,6 +61,9 @@ PROGRAM = textwrap.dedent(
                       for _, shape, _ in convert.discriminator_weight_spec(4)])
     assert convert_weights.main(["--discriminator", keras, "--out-dir", sys.argv[1],
                                  "--verify", "--device", "cpu"]) == 0
+    import torch
+    mean, mean2 = moments.moments(torch.ones(5, 3, 4, 4, dtype=torch.bfloat16))
+    assert mean.shape == (5, 3) and bool((mean2 == 1).all()) and len(table.KERNELS) == 9
     loaded = sorted(
         m for m in sys.modules
         if m in ("jax", "palette_and_histo_gan_tpu", "tensorflow")
@@ -66,7 +71,7 @@ PROGRAM = textwrap.dedent(
     )
     print(json.dumps({
         "loaded": loaded,
-        "launches": {**augment_kernel.launches, **palette_kernel.launches},
+        "launches": {**augment_kernel.launches, **palette_kernel.launches, **moments.launches},
         "steps": {k: v[0] for k, v in histories.items()},
         "finite": all(math.isfinite(x) for _, h in histories.values() for x in h.values()),
         "metrics": {k: sorted(v[1]) for k, v in histories.items()},
@@ -84,7 +89,7 @@ def test_port_trains_on_cpu_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
-    assert out["launches"] == {"packed": 0, "rgba": 0, "K5": 0}
+    assert out["launches"] == {"packed": 0, "rgba": 0, "K5": 0, "K6": 0}
     assert out["steps"] == {"histogram": 1, "indexed": 1} and out["finite"]
     assert "generator/histogram_loss" in out["metrics"]["histogram"]
     assert "generator/segmentation_loss" in out["metrics"]["indexed"]
@@ -109,7 +114,7 @@ def test_port_sources_import_nothing_of_the_jax_package():
     sources.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(sources) > 20
     for module in ("convert_weights.py", "utils/flops.py", "utils/profiling.py",
-                   "models/convert.py"):
+                   "models/convert.py", "bench_in_stats.py", "ops/moments.py", "kernels/table.py"):
         assert os.path.join(REPO, "palette_and_histo_gan_tpu_torch", module) in sources, module
     bad = {
         os.path.relpath(path, REPO): sorted(
