@@ -123,6 +123,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      "pallas2" the bfloat16 forward (K3b) must run twice a step, 24 times,
      under "pallas2" and histogram_bwd="pallas" the bfloat16 backward (K4b
      and K4c) once a step, 12 times, and no tensor-core kernel otherwise.
+ 10a. the measurement tools, each phase's seconds printed. sweep
+     (phase_sweep): the port's sweep.py in one process under `torchrun
+     --nproc-per-node=1`, its launches printed after it: the four variants
+     at b4 float32 and b1024 bfloat16 (SWEEP_STEPS timed steps after as
+     many of warm-up), then a histogram b1024 bfloat16 row data parallel
+     over NCCL at world size 1 (and one over every card where there are
+     more); every row error-free, finite, on the device clock, with K1
+     once a step for baseline and histogram, K3b twice and K4b once for
+     histogram, nothing for the others; the histogram b1024 bfloat16
+     device ms/step within 5% of the timed chunk's. infer (phase_infer):
+     bench_infer.py for baseline-no-aug and indexed at batches 64 and
+     1024, bfloat16, dropout on and off; finite checksums; at b1024 the
+     chunk's checksum equal to direct generate calls over the same batches
+     and draws (INFER_REL). components (phase_components):
+     profile_components.py under "pallas2" at b1024 bfloat16 and b4
+     float32; augment launches K1 once a call, hist_fwd_bwd K3b twice and
+     K4b once; every time finite and positive. roofline
+     (phase_roofline): roofline.py for histogram "pallas2", baseline-no-aug
+     and indexed at b1024 bfloat16; the groups sum to the profiled steps'
+     device time within 1%, unattributed at most 5%, no group under 0.95
+     of its floor. Then the host cost of the step's named ranges
+     (range_cost_us).
  11. FID (phase_fid), under deterministic cuDNN from here on: InceptionV3
      at input 299 (random numpy-drawn weights unless PHG_INCEPTION_WEIGHTS
      names converted ones); 22 images' activations
@@ -178,11 +200,13 @@ K4b and K4c the tensor-core kernels' launches in the b1024 bf16 chunks
 phase (lifecycle_launches), K1, K3b and K4b a data-parallel rank's in
 part 1 of the data-parallel phase (dp_rank_launches); K1 and K2 their
 launches on baseline's main path (baseline_launches); K1, K3b, K4b and
-K5 theirs in the CLI's dataset-root runs (dataset_root_launches). K6, at
+K5 theirs in the CLI's dataset-root runs (dataset_root_launches); K1,
+K3b and K4b theirs in the sweep's process (sweep_launches). K6, at
 MOMENTS_ENTRY_ROW, its launches those of the A/B, gives the A/B's forms A
 and B at that row (ab_ms), every A/B row (ab_rows) and the generator's
 InstanceNorm inputs at b1024 with form A's and K6's times
-(instance_norm_step).
+(instance_norm_step), and its device time beside its plain version's at the
+A/B's smallest NCHW row (small_device_ms).
 """
 
 from __future__ import annotations
@@ -198,6 +222,10 @@ import time
 
 import numpy as np
 import torch
+
+from palette_and_histo_gan_tpu_torch.utils.profiling import card_line
+from palette_and_histo_gan_tpu_torch.utils.roofline import (AUGMENT_OPS_PER_PIXEL, PEAK, bound,
+                                                         histogram_bound)
 
 SEED = 47
 F32_TOL = 5e-4  # on the 0-255 scale (palette_and_histo_gan_tpu/ops/augment_pallas.py:67-68)
@@ -259,48 +287,12 @@ BASELINE_VARIANTS = ("baseline", "baseline-no-aug")
 # logs of the smoke's Trainers go under a folder .gitignore lists
 TEMP_FOLDER = os.path.join("build", "chip_smoke")
 
-# An H100 SXM's peaks (NVIDIA's data sheet, dense): memory bytes/s and
-# operations/s by type. int32 on the CUDA cores: 132 SMs x 64 INT32 lanes x
-# 1.98 GHz (the Hopper white paper; half the float32 lanes behind the
-# float32 67 TFLOP/s). bfloat16 and tf32 are the tensor cores' rates: the
-# bfloat16 chain's products are bfloat16 x bfloat16 summed in float32, the
-# float32 forward's three TF32 products a pair of factors (3xTF32).
-PEAK = {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12, "tf32": 495e12,
-        "int32": 132 * 64 * 1.98e9}
-# the augmentation's float32 operations a pixel and image (hue rotation,
-# select, normalize; csrc/augment.cu)
-AUGMENT_OPS_PER_PIXEL = 40
-
-
-def bound(nbytes: float, *ops: tuple[float, str]) -> tuple[float, str]:
-    """The least time the card could take for this work, in ms, and what
-    sets it: bytes over the memory rate, or the slowest of the (count,
-    type) operation terms over their peak (each type on its own units)."""
-    t_bytes = 1e3 * nbytes / PEAK["bytes"]
-    t_ops = max(1e3 * n / PEAK[op_type] for n, op_type in ops)
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def histogram_bound(w: dict, product_type: str | None = None) -> tuple[float, str]:
-    """bound() of a histogram kernel's work (ops/histogram_kernel.py::work):
-    its products, `passes` times, at the peak of `product_type` (default:
-    the units the kernel takes them on), its elementwise chain at
-    float32's, its bytes."""
-    product_type = product_type or w["product_type"]
-    passes = w["passes"] if product_type == w["product_type"] else 1
-    return bound(w["bytes"], (passes * w["products"], product_type), (w["elementwise"], "float32"))
+# PEAK, bound, histogram_bound and AUGMENT_OPS_PER_PIXEL: utils/roofline.py;
+# card_line: utils/profiling.py
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 T_START = time.perf_counter()
@@ -849,6 +841,16 @@ def phase_in_stats(device) -> dict:
              *bound(row["bytes"], (3 * math.prod(shape), "float32")))
     log("in_stats", f"K6 {shape} {layout}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
     del pool
+    # the small row, the A/B's (1024, 256, 8, 8) NCHW: K6's device time there
+    # (the A/B's; by CUDA events the wrapper's host time hides the kernel)
+    # beside its plain version's device time on the same pool
+    small = next(r for r in rows if tuple(r["shape"]) == ab.SHAPES[0] and r["layout"] == "nchw")
+    pool = ab.make_pool(ab.SHAPES[0], "nchw", device)
+    small_device = {"shape": list(ab.SHAPES[0]), "layout": "nchw", "ms": small["C_device_ms"],
+                    "plain_ms": ab.device_ms(mo.moments_plain, pool, 10)}
+    log("in_stats", f"K6 {ab.SHAPES[0]} nchw by device time: kernel {small_device['ms']:.4f} ms, "
+        f"plain {small_device['plain_ms']:.4f} ms")
+    del pool
 
     # the networks' statistics (form A) and K6 at b1024 at each InstanceNorm
     # input of the generator, in the card's layout: what K6 under
@@ -869,7 +871,7 @@ def phase_in_stats(device) -> dict:
         f"{total['A_device_ms'] - total['K6_device_ms']:.4f} ms of device time a step")
     torch.cuda.empty_cache()
     return {"worst": worst, "launches": launches, "rows": rows, "step": step,
-            "times": times,
+            "times": times, "small_device_ms": small_device,
             "ab_ms": {"A": row["A_event_ms"], "B": row["B_event_ms"]}}
 
 
@@ -2061,6 +2063,311 @@ def phase_data_parallel(device, card: str, fid_evaluator) -> dict:
     return out
 
 
+# ------------------------------------------------------ measurement tools
+
+SWEEP_STEPS = 10
+# (dtype, batch) of the sweep's rows: the reference regime and throughput
+SWEEP_REGIMES = (("float32", 4), ("bfloat16", 1024))
+SWEEP_VARIANTS = ("baseline-no-aug", "baseline", "indexed", "histogram")
+# K1, K3b and K4b a step on the sweep's rows ("pallas2", the CLI's default
+# on a card); the others none
+SWEEP_LAUNCHES_A_STEP = {"baseline-no-aug": {}, "baseline": {"K1": 1.0}, "indexed": {},
+                         "histogram": {"K1": 1.0, "K3b": 2.0, "K4b": 1.0}}
+SWEEP_VS_TIMED = 0.05  # the sweep's device ms/step against phase_timed_chunk's
+# the sweep in a process of its own (under torchrun), one sweep.main call a
+# JSON argv of argv[1], its kernels' launches printed after it
+SWEEP_WITH_LAUNCHES = textwrap.dedent(
+    """
+    import json, sys
+    from palette_and_histo_gan_tpu_torch import sweep
+    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, histogram_kernel
+    for argv in json.loads(sys.argv[1]):
+        code = sweep.main(argv)
+    print(json.dumps({**augment_kernel.launches, **histogram_kernel.launches}))
+    sys.exit(code)
+    """
+)
+
+
+def sweep_rows(stdout: str) -> list[dict]:
+    return [json.loads(line) for line in stdout.splitlines()
+            if line.startswith("{") and '"variant"' in line]
+
+
+def check_sweep_row(row: dict, what: str) -> None:
+    """Error-free, finite, on the device clock, with its variant's launches."""
+    if "error" in row:
+        raise AssertionError(f"sweep {what}: an error row {row}")
+    numbers = [row[k] for k in ("step_seconds", "device_step_seconds", "host_step_seconds",
+                                "images_per_sec", "mfu")]
+    if row["clock"] != "device" or not all(math.isfinite(v) and v > 0 for v in numbers):
+        raise AssertionError(f"sweep {what}: not a finite device-clock row {row}")
+    need = SWEEP_LAUNCHES_A_STEP[row["variant"]]
+    if row["launches_per_step"] != need:
+        raise AssertionError(f"sweep {what}: launches a step {row['launches_per_step']}, "
+                             f"needed {need}")
+
+
+def run_sweep(device, world: int, argvs: list, out_dir: str) -> tuple[list, dict, float]:
+    """SWEEP_WITH_LAUNCHES under `torchrun --nproc-per-node=world`: (rank
+    0's rows, its launches, seconds)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(out_dir, exist_ok=True)
+    program = os.path.join(out_dir, "sweep_rows.py")
+    with open(program, "w") as f:
+        f.write(SWEEP_WITH_LAUNCHES)
+    torchrun = shutil.which("torchrun") or os.path.join(os.path.dirname(sys.executable), "torchrun")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [torchrun, "--standalone", f"--nproc-per-node={world}", program, json.dumps(argvs)],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo), capture_output=True, text=True,
+        timeout=900,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the sweep (torchrun x {world}) exited {proc.returncode}: "
+                             f"{proc.stdout[-1500:]} {proc.stderr[-3000:]}")
+    launches = json.loads(proc.stdout.strip().splitlines()[-1])
+    return sweep_rows(proc.stdout), launches, seconds
+
+
+def log_sweep_row(row: dict, what: str) -> None:
+    log("sweep", f"{what}: {1e3 * row['step_seconds']:.3f} device ms/step, "
+        f"{1e3 * row['host_step_seconds']:.3f} host, {row['images_per_sec']:.1f} img/s "
+        f"({row['images_per_sec_per_chip']:.1f} a card), MFU {100 * row['mfu']:.2f}%, peak "
+        f"{row['peak_device_memory_bytes'] / 2**30:.2f} GiB, launches a step "
+        f"{row['launches_per_step']}, wall s {row['wall_seconds']}")
+
+
+def phase_sweep(device, timed_ms: float) -> dict:
+    """python -m ...sweep's main in one process under `torchrun
+    --nproc-per-node=1`, its kernels' launches printed after it: the four
+    variants at b4 float32 and b1024 bfloat16 one process each
+    (--data-parallel off), SWEEP_STEPS timed steps each, then one histogram
+    b1024 bfloat16 row over NCCL at world size 1 (--data-parallel on); one
+    more such row over every card where there are more. Gates: every row
+    error-free, finite, on the device clock, with its variant's launches a
+    step (SWEEP_LAUNCHES_A_STEP); the histogram b1024 bfloat16 device
+    ms/step within SWEEP_VS_TIMED of `timed_ms`, phase_timed_chunk's
+    reading of the same program."""
+    out_dir = os.path.join(TEMP_FOLDER, "sweep")
+    common = ["--device", device.type, "--steps", str(SWEEP_STEPS)]
+    argvs = [common + ["--dtype", dtype, "--batches", str(batch), "--data-parallel", "off",
+                       "--out", os.path.join(out_dir, f"sweep_{dtype}_b{batch}.json")]
+             for dtype, batch in SWEEP_REGIMES]
+    dp = common + ["--variants", "histogram", "--batches", "1024", "--dtype", "bfloat16",
+                   "--data-parallel", "on"]
+    rows, launches, seconds = run_sweep(
+        device, 1, argvs + [dp + ["--out", os.path.join(out_dir, "sweep_nccl_1.json")]], out_dir)
+    if len(rows) != len(SWEEP_REGIMES) * len(SWEEP_VARIANTS) + 1:
+        raise AssertionError(f"the sweep printed {len(rows)} rows")
+    *rows, nccl = rows
+    for row in rows:
+        what = f"{row['variant']} {row['dtype']} b{row['batch']}"
+        check_sweep_row(row, what)
+        log_sweep_row(row, what)
+    check_sweep_row(nccl, "NCCL x 1")
+    if nccl["n_devices"] != 1:
+        raise AssertionError(f"the NCCL row ran on {nccl['n_devices']} ranks")
+    log_sweep_row(nccl, "torchrun x 1 over NCCL, histogram bfloat16 b1024 (global)")
+    log("sweep", f"{len(rows) + 1} rows in {seconds:.1f} s (one process under torchrun); its "
+        f"launches {launches}")
+    hist = next(r for r in rows if r["variant"] == "histogram" and r["batch"] == 1024)
+    off = abs(1e3 * hist["step_seconds"] - timed_ms) / timed_ms
+    log("sweep", f"histogram b1024 bf16: sweep {1e3 * hist['step_seconds']:.3f} device ms/step, "
+        f"timed chunk {timed_ms:.3f}: {100 * off:.2f}% apart (gate {100 * SWEEP_VS_TIMED:.0f}%)")
+    if off > SWEEP_VS_TIMED:
+        raise AssertionError(f"the sweep's histogram b1024 bf16 step is {100 * off:.2f}% from "
+                             "the timed chunk's")
+    out = {"rows": rows, "nccl_1": nccl, "launches": launches, "seconds": seconds,
+           "vs_timed": off}
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if cards > 1:
+        (row,), _, seconds = run_sweep(
+            device, cards, [dp + ["--out", os.path.join(out_dir, f"sweep_nccl_{cards}.json")]],
+            out_dir)
+        check_sweep_row(row, f"NCCL x {cards}")
+        if row["n_devices"] != cards:
+            raise AssertionError(f"torchrun x {cards}: the row ran on {row['n_devices']} ranks")
+        log_sweep_row(row, f"torchrun x {cards} over NCCL, histogram bfloat16 b1024 (global)")
+        out["cards"] = row
+    else:
+        log("sweep", "one card: no row across cards")
+    return out
+
+
+INFER_STEPS = 8
+INFER_VARIANTS = ("baseline-no-aug", "indexed")
+INFER_BATCHES = (64, 1024)
+# the chunk's checksum against the direct calls' sums: the same kernels on
+# the same inputs with the same draws give the same float32 sum a batch;
+# the chunk adds the INFER_STEPS sums in float32 on the device, the check
+# in float64 on the host, which differ by at most INFER_STEPS float32
+# roundings of the running sum (INFER_STEPS x 2^-24 = 4.8e-7 of the sum of
+# the sums' magnitudes); this allows 20 times that
+INFER_REL = 1e-5
+
+
+def direct_checksum(config, generator, pool, steps: int) -> tuple:
+    """(sum, sum of magnitudes) of the per-batch float32 sums of direct
+    train/steps.py::generate calls, dropout drawn from a fresh dropout
+    generator, as the chunk's."""
+    from palette_and_histo_gan_tpu_torch import bench_infer
+    from palette_and_histo_gan_tpu_torch.train.steps import generate
+
+    drop = bench_infer.dropout_generator(pool.device)
+    total = magnitude = 0.0
+    for i in range(steps):
+        s = float(generate(config, generator, bench_infer.batch_at(config, pool, i), drop)
+                  .float().sum())
+        total += s
+        magnitude += abs(s)
+    return total, magnitude
+
+
+def phase_infer(device) -> dict:
+    """bench_infer.run for baseline-no-aug and indexed at batches 64 and
+    1024, bfloat16, dropout on and --deterministic; every checksum finite;
+    at the largest batch the dropout chunk's checksum against direct
+    generate calls over the same batches with the same dropout draws,
+    within INFER_REL."""
+    from palette_and_histo_gan_tpu_torch import bench_infer
+
+    rows = []
+    for variant in INFER_VARIANTS:
+        for batch in INFER_BATCHES:
+            for deterministic in (False, True):
+                row = bench_infer.run(variant, batch, INFER_STEPS, "bfloat16", deterministic,
+                                      device)
+                if not all(math.isfinite(row[k]) for k in ("checksum", "ms_per_batch", "mfu")):
+                    raise AssertionError(f"bench_infer: a row that is not finite {row}")
+                rows.append(row)
+                log("infer", f"{variant} b{batch} dropout {row['dropout'].split()[0]}: "
+                    f"{row['ms_per_batch']:.3f} device ms a batch, {row['host_ms_per_batch']:.3f} "
+                    f"host, {row['images_per_sec']:.1f} img/s, MFU {100 * row['mfu']:.2f}%, "
+                    f"checksum {row['checksum']:.6e}")
+        batch = max(INFER_BATCHES)
+        config, generator, pool = bench_infer.setup(variant, batch, "bfloat16", device)
+        chunk = bench_infer.make_infer_chunk(config, generator, pool)
+        got = float(chunk(bench_infer.dropout_generator(device), INFER_STEPS))
+        want, magnitude = direct_checksum(config, generator, pool, INFER_STEPS)
+        log("infer", f"{variant} b{batch} with dropout: chunk {got:.8e}, direct generate "
+            f"{want:.8e}, {abs(got - want) / magnitude:.2e} of the sums' magnitudes "
+            f"(tol {INFER_REL})")
+        if not abs(got - want) <= INFER_REL * magnitude:
+            raise AssertionError(f"the serving chunk's checksum {got} is not the direct "
+                                 f"calls' {want}")
+    return {"rows": rows}
+
+
+# launches a call of the components that run a kernel ("pallas2")
+COMPONENT_LAUNCHES = {"augment": {"K1": 1.0}, "hist_fwd_bwd": {"K3b": 2.0, "K4b": 1.0}}
+
+
+def phase_components(device) -> dict:
+    """profile_components.run under histogram "pallas2" at b1024 bfloat16
+    and b4 float32: augment launches K1 once a call, hist_fwd_bwd K3b twice
+    and K4b once; every time finite and positive."""
+    from palette_and_histo_gan_tpu_torch import profile_components
+
+    out = {}
+    for dtype, batch in (("bfloat16", 1024), ("float32", 4)):
+        res = profile_components.run(batch, dtype, device)
+        for name, row in res["components"].items():
+            times = (row["device_ms"], row["host_marginal_ms"])
+            if not all(math.isfinite(t) and t > 0 for t in times):
+                raise AssertionError(f"components {dtype} b{batch} {name}: times {times}")
+            need = COMPONENT_LAUNCHES.get(name)
+            if need is not None and row["launches_per_call"] != need:
+                raise AssertionError(f"components {name}: launches a call "
+                                     f"{row['launches_per_call']}, needed {need}")
+        if not (math.isfinite(res["step_device_ms"]) and res["step_device_ms"] > 0):
+            raise AssertionError(f"components: the step's device time {res['step_device_ms']}")
+        log("components", f"{dtype} b{batch} (device ms / host marginal ms a call): "
+            + ", ".join(f"{n} {r['device_ms']:.3f}/{r['host_marginal_ms']:.3f}"
+                        for n, r in res["components"].items())
+            + f"; the step {res['step_device_ms']:.3f} device ms (for scale)")
+        out[(dtype, batch)] = res
+    return out
+
+
+ROOFLINE_STEPS = 3
+# histogram under the CLI's default on a card, "pallas2"
+ROOFLINE_VARIANTS = ("histogram", "baseline-no-aug", "indexed")
+ROOFLINE_SUM_REL = 0.01  # the groups' sum against the profiled steps' device time
+ROOFLINE_UNATTRIBUTED = 0.05
+ROOFLINE_MIN_RATIO = 0.95  # a measured time under its own floor: a count is wrong
+
+
+def phase_roofline(device) -> dict:
+    """roofline.run for histogram "pallas2", baseline-no-aug and indexed at
+    b1024 bfloat16, ROOFLINE_STEPS profiled steps each: the groups' device
+    times sum to the steps' within ROOFLINE_SUM_REL, unattributed at most
+    ROOFLINE_UNATTRIBUTED of it, and every group with a floor at least
+    ROOFLINE_MIN_RATIO of it. Writes each table under build/chip_smoke/."""
+    from palette_and_histo_gan_tpu_torch import roofline
+    from palette_and_histo_gan_tpu_torch.utils.profiling import write_build_json
+
+    out = {}
+    for variant in ROOFLINE_VARIANTS:
+        res = roofline.run(variant, 1024, "bfloat16", ROOFLINE_STEPS, device)
+        write_build_json(os.path.join(TEMP_FOLDER, f"roofline_{variant}.json"), res)
+        for line in roofline.format_table(res).splitlines():
+            log("roofline", f"{variant}: {line}")
+        log("roofline", f"{variant}: unattributed rows (ms a step) {res['unattributed_rows_ms']}; "
+            f"launches a step {res['launches_per_step']}")
+        total, groups = res["step_device_ms"], res["groups_ms"]
+        if abs(groups - total) > ROOFLINE_SUM_REL * total:
+            raise AssertionError(f"roofline {variant}: groups {groups:.3f} ms against the "
+                                 f"step's {total:.3f} ms")
+        if res["unattributed_share"] > ROOFLINE_UNATTRIBUTED:
+            raise AssertionError(f"roofline {variant}: {100 * res['unattributed_share']:.2f}% "
+                                 "unattributed")
+        low = [r for r in res["rows"] if r["ratio"] is not None and r["ratio"] < ROOFLINE_MIN_RATIO]
+        if low:
+            raise AssertionError(f"roofline {variant}: groups under their floor {low}")
+        out[variant] = res
+    return out
+
+
+def range_cost_us(n: int = 10000) -> dict:
+    """Host microseconds of one enter and exit of a step's named range
+    (train/steps.py::named_range) outside a profile, and of a
+    record_function range (what it opens inside one), and the ranges one
+    b4 float32 histogram "pallas2" step enters (counted by wrapping
+    named_range over one step)."""
+    from palette_and_histo_gan_tpu_torch.sweep import prepare
+    from palette_and_histo_gan_tpu_torch.train import steps as steps_mod
+
+    def per_call(enter) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with enter("G-fwd"):
+                pass
+        return 1e6 * (time.perf_counter() - t0) / n
+
+    out = {"named_range_us": per_call(steps_mod.named_range),
+           "record_function_us": per_call(torch.profiler.record_function)}
+    setup = prepare("histogram", 4, "float32", torch.device("cuda", 0), histogram_impl="pallas2")
+    setup.run(1)
+    count = [0]
+    real = steps_mod.named_range
+
+    def counted(name):
+        count[0] += 1
+        return real(name)
+
+    steps_mod.named_range = counted
+    try:
+        setup.run(1)
+    finally:
+        steps_mod.named_range = real
+    out["ranges_a_step"] = count[0]
+    out["us_a_step"] = out["named_range_us"] * count[0]
+    out["profiled_us_a_step"] = out["record_function_us"] * count[0]
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -2236,6 +2543,21 @@ def main() -> int:
                      for variant in BASELINE_VARIANTS}
     idx_f32 = phase_timed_chunk(device, "indexed", "float32", dict(batch_size=4), steps=40)
     idx_bf16 = phase_timed_chunk(device, "indexed", "bfloat16", dict(batch_size=1024), steps=10)
+    tools = {}
+    for name, phase in (
+        ("sweep", lambda: phase_sweep(device, bf16["pallas2"]["device_ms_per_step"])),
+        ("infer", lambda: phase_infer(device)), ("components", lambda: phase_components(device)),
+        ("roofline", lambda: phase_roofline(device)),
+    ):
+        t0 = time.perf_counter()
+        tools[name] = phase()
+        tools[name]["phase_s"] = time.perf_counter() - t0
+        log(name, f"phase {tools[name]['phase_s']:.1f} s")
+    ranges = range_cost_us()
+    log("ranges", f"{ranges['ranges_a_step']} named ranges a b4 f32 histogram step: "
+        f"{ranges['named_range_us']:.2f} us a range outside a profile, {ranges['us_a_step']:.1f} "
+        f"us a step (host); {ranges['record_function_us']:.2f} us a range inside one, "
+        f"{ranges['profiled_us_a_step']:.1f} us a step")
     fid_out, fid_evaluator = phase_fid(device, card)
     life, trained, bf16_trainer = phase_lifecycle(device, card, fid_evaluator)
     exp = phase_export(device, card, trained, bf16_trainer)
@@ -2289,6 +2611,12 @@ def main() -> int:
         name = {"augment_packed": "packed"}.get(entry["name"], entry["name"])
         if name in ("packed", "K3b", "K4b"):
             entry["reference_weights_launches"] = reference["launches"][name]
+    # the launches of the sweep's process (eight rows, SWEEP_STEPS timed
+    # steps each after as many of warm-up and as many profiled)
+    for entry in kernels:
+        name = {"augment_packed": "packed"}.get(entry["name"], entry["name"])
+        if tools["sweep"]["launches"].get(name):
+            entry["sweep_launches"] = tools["sweep"]["launches"][name]
     # K3a beside the bound of its products as float32 FMAs
     k3a = next(e for e in kernels if e["name"] == "K3a")
     k3a["bound_f32_fma_ms"] = hist["times"][("K3a fma", 1024)][0]
@@ -2304,6 +2632,7 @@ def main() -> int:
         for r in in_stats["rows"]
     ]
     k6["instance_norm_step"] = in_stats["step"]
+    k6["small_device_ms"] = in_stats["small_device_ms"]
     kernels.append(k6)
     log("summary", f"{card}: b4 kernel/plain ms "
         + ", ".join(f"{e} {kern['times'][(e, 4)][0]:.4f}/{kern['times'][(e, 4)][1]:.4f}" for e in ("packed", "rgba"))
@@ -2348,6 +2677,20 @@ def main() -> int:
         + f"{torchrun['seconds']:.1f} s"
         + f"; run_experiment {experiment_s:.1f} s"
         + f"; float32_exact {scope_us:.2f} us a scope (host)"
+        + f"; named ranges {ranges['us_a_step']:.2f} us a b4 f32 step (host, "
+        + f"{ranges['ranges_a_step']} x {ranges['named_range_us']:.3f}; profiled "
+        + f"{ranges['profiled_us_a_step']:.1f})"
+        + "; sweep (device ms/step, b1024 bf16) " + ", ".join(
+            f"{r['variant']} {1e3 * r['step_seconds']:.3f}" for r in tools["sweep"]["rows"]
+            if r["batch"] == 1024)
+        + f", {100 * tools['sweep']['vs_timed']:.2f}% from the timed chunk"
+        + "; infer b1024 bf16 ms a batch " + ", ".join(
+            f"{r['variant']} {r['dropout'].split()[0]} {r['ms_per_batch']:.3f}"
+            for r in tools["infer"]["rows"] if r["batch"] == 1024)
+        + "; roofline b1024 bf16 unattributed " + ", ".join(
+            f"{v} {100 * tools['roofline'][v]['unattributed_share']:.2f}%"
+            for v in ROOFLINE_VARIANTS)
+        + "; tool phases " + ", ".join(f"{k} {v['phase_s']:.1f} s" for k, v in tools.items())
         + f"; smoke {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -42,19 +42,18 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
-import subprocess
 import sys
 
 import torch
 
 from .ops import moments as moments_ops
-from .utils.profiling import device_step_seconds, marginal_call_seconds
+from .utils.profiling import card_line, device_step_seconds, marginal_call_seconds
+from .utils.roofline import PEAK
 
 # the script's decoder operating points, NHWC (1024, H, W, C) -> (B, C, H, W)
 SHAPES = ((1024, 256, 8, 8), (1024, 128, 16, 16), (1024, 64, 32, 32), (1024, 32, 64, 64))
 LAYOUTS = ("nchw", "nhwc")
 CHECK_ATOL = 1e-2  # scripts/bench_in_stats.py:102
-PEAK_BYTES = 3.35e12  # an H100 SXM's device memory, bytes/s
 MIN_POOL = 4
 MIN_POOL_BYTES = 128 * 2**20
 EVENT_CALLS = 200
@@ -98,14 +97,6 @@ def stats_dot(x: torch.Tensor, out_dtype: bool) -> tuple[torch.Tensor, torch.Ten
         ones = torch.ones((1, 1, hw), dtype=x.dtype, device=x.device).expand(b, 1, hw)
         s, s2 = torch.bmm(ones, flat, **kw), torch.bmm(ones, flat * flat, **kw)
     return s.float().reshape(b, c) / hw, s2.float().reshape(b, c) / hw
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def make_pool(shape, layout: str, device, seed: int = SEED) -> list[torch.Tensor]:
@@ -179,7 +170,7 @@ def ab_row(shape, layout: str, device) -> dict:
     nbytes = 2 * b * c * h * w + 2 * 4 * b * c
     row = {
         "shape": list(shape), "layout": layout, "dtype": "bfloat16", "device": str(device),
-        "bytes": nbytes, "floor_ms": 1e3 * nbytes / PEAK_BYTES, "pool": len(pool),
+        "bytes": nbytes, "floor_ms": 1e3 * nbytes / PEAK["bytes"], "pool": len(pool),
         "pool_bytes": 2 * b * c * h * w * len(pool),
         "B_output": "float32 (out_dtype)" if out_dtype else "bfloat16, upcast",
         "A_vs_C": a_vs_c, "B_vs_C": b_vs_c,

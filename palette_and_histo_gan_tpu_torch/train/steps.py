@@ -22,14 +22,25 @@ averages each network's gradients over the ranks (one flat all_reduce a
 network) before the two Adam updates; the chunk gathers this rank's rows
 of the global batch and averages the stacked metrics over the ranks once
 a chunk.
+
+Named ranges (`named_range`, `torch.profiler.record_function` while a
+profiler records) mark the step's parts with the JAX roofline's group
+names: "batch-gather" (the chunk's draw and gather, and the batch's
+unpack and normalize where there is no augmentation), "augment", "G-fwd",
+"D-fwd", "hist-fwd", "loss" and "optimizer". They change no operation of
+the step. roofline.py attributes the device time of each kernel to its
+range, and a backward kernel to the range of the forward operation whose
+autograd node ran it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from functools import partial
 from typing import Callable
 
 import torch
+from torch.profiler import record_function
 
 from ..config import Config, compute_dtype
 from ..data.loader import batch_indices
@@ -47,6 +58,14 @@ from .losses import (
     sparse_categorical_crossentropy_logits,
 )
 from .state import TrainState
+
+
+def named_range(name: str):
+    """A named range of a profile while a profiler records, nothing
+    otherwise: a range costs ~10 us of host time, the check ~0.3 us."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
 
 
 def pack_rows(arr: torch.Tensor) -> torch.Tensor:
@@ -91,14 +110,16 @@ def _prepare_batch(config: Config, state: TrainState, source, target, group=None
         # normalize folded into the augmentation's write; in bfloat16 mode
         # it writes bfloat16, as every consumer casts to it anyway
         rows, first = _global_rows(group, source.shape[0])
-        return augment_ops.augment_batch_sharded(
-            source, target, state.aug_generator, config.augment_probability,
-            global_batch=rows, first_row=first,
-            normalize_out=True, out_dtype=compute_dtype(config),
-        )
-    if source.dtype == torch.int32:
-        source, target = unpack_rows(source), unpack_rows(target)
-    return normalize(source.float()), normalize(target.float())
+        with named_range("augment"):
+            return augment_ops.augment_batch_sharded(
+                source, target, state.aug_generator, config.augment_probability,
+                global_batch=rows, first_row=first,
+                normalize_out=True, out_dtype=compute_dtype(config),
+            )
+    with named_range("batch-gather"):
+        if source.dtype == torch.int32:
+            source, target = unpack_rows(source), unpack_rows(target)
+        return normalize(source.float()), normalize(target.float())
 
 
 def histogram_fn(config: Config) -> Callable:
@@ -137,8 +158,12 @@ def rgba_train_step(config: Config, state: TrainState, source, target, group=Non
     gen, disc = state.generator, state.discriminator
     dtype = compute_dtype(config)
 
-    fake = gen(source, dropout, deterministic=config.deterministic_dropout)
-    g_metrics = generator_loss(disc(fake, source), fake, target, config.effective_lambda_l1)
+    with named_range("G-fwd"):
+        fake = gen(source, dropout, deterministic=config.deterministic_dropout)
+    with named_range("D-fwd"):
+        fake_pred = disc(fake, source)
+    with named_range("loss"):
+        g_metrics = generator_loss(fake_pred, fake, target, config.effective_lambda_l1)
     if config.model == "histogram":
         # two separate histogram calls, real and fake, as the JAX step runs them
         kw = dict(
@@ -146,11 +171,14 @@ def rgba_train_step(config: Config, state: TrainState, source, target, group=Non
             sigma=config.histogram_sigma, dtype=dtype,
         )
         hist_fn = histogram_fn(config)
-        real_hist = hist_fn(target, **kw)
-        fake_hist = hist_fn(fake, **kw)
-        h_loss = hist_ops.hellinger_loss(real_hist, fake_hist, group)
-        g_metrics["histogram_loss"] = h_loss
-        g_metrics["total_loss"] = g_metrics["total_loss"] + config.lambda_histogram * h_loss
+        with named_range("hist-fwd"):
+            real_hist = hist_fn(target, **kw)
+        with named_range("hist-fwd"):
+            fake_hist = hist_fn(fake, **kw)
+        with named_range("loss"):
+            h_loss = hist_ops.hellinger_loss(real_hist, fake_hist, group)
+            g_metrics["histogram_loss"] = h_loss
+            g_metrics["total_loss"] = g_metrics["total_loss"] + config.lambda_histogram * h_loss
 
     gen.zero_grad(set_to_none=True)
     disc.zero_grad(set_to_none=True)
@@ -158,12 +186,18 @@ def rgba_train_step(config: Config, state: TrainState, source, target, group=Non
 
     fake = fake.detach()
     # two separate D passes, as the reference runs them (pix2pix_model.py:69-70)
-    d_metrics = discriminator_loss(disc(target, source), disc(fake, source))
+    with named_range("D-fwd"):
+        real_pred = disc(target, source)
+    with named_range("D-fwd"):
+        fake_pred = disc(fake, source)
+    with named_range("loss"):
+        d_metrics = discriminator_loss(real_pred, fake_pred)
     d_metrics["total_loss"].backward(inputs=list(disc.parameters()))
 
     _average_gradients(group, gen, disc)
-    state.g_optimizer.step()
-    state.d_optimizer.step()
+    with named_range("optimizer"):
+        state.g_optimizer.step()
+        state.d_optimizer.step()
     state.step += 1
     metrics = {f"generator/{k}": v.detach() for k, v in g_metrics.items()}
     metrics.update({f"discriminator/{k}": v.detach() for k, v in d_metrics.items()})
@@ -183,21 +217,24 @@ def indexed_train_step(config: Config, state: TrainState, source_idx, target_idx
     is one pass over the stacked [real; fake] and [source; source] batch,
     as the JAX step runs it (:377-383)."""
     gen, disc = state.generator, state.discriminator
-    source = source_idx.float()
-    real = target_idx.float()
-    labels = target_idx[..., 0]
+    with named_range("batch-gather"):
+        source = source_idx.float()
+        real = target_idx.float()
+        labels = target_idx[..., 0]
 
-    logits = gen(
-        source, _dropout(config, state, group, source.shape[0]),
-        deterministic=config.deterministic_dropout, logits=True,
-    )
-    fake = torch.argmax(logits, dim=-1, keepdim=True).float()
-    with torch.no_grad():
+    with named_range("G-fwd"):
+        logits = gen(
+            source, _dropout(config, state, group, source.shape[0]),
+            deterministic=config.deterministic_dropout, logits=True,
+        )
+        fake = torch.argmax(logits, dim=-1, keepdim=True).float()
+    with torch.no_grad(), named_range("D-fwd"):
         fake_pred = disc(fake, source)
-    adversarial = bce_with_logits(torch.ones_like(fake_pred), fake_pred)
-    l1 = onehot_l1_logits(labels, logits)
-    seg = sparse_categorical_crossentropy_logits(labels, logits)
-    total = adversarial + config.effective_lambda_l1 * l1 + config.lambda_segmentation * seg
+    with named_range("loss"):
+        adversarial = bce_with_logits(torch.ones_like(fake_pred), fake_pred)
+        l1 = onehot_l1_logits(labels, logits)
+        seg = sparse_categorical_crossentropy_logits(labels, logits)
+        total = adversarial + config.effective_lambda_l1 * l1 + config.lambda_segmentation * seg
     g_metrics = {
         "total_loss": total,
         "adversarial_loss": adversarial,
@@ -210,15 +247,18 @@ def indexed_train_step(config: Config, state: TrainState, source_idx, target_idx
     total.backward(inputs=list(gen.parameters()))
     del logits  # (B, 64, 64, 256): 2 GiB at b1024 bf16 that D's step does not need
 
-    real_pred, fake_pred = disc(
-        torch.cat([real, fake], dim=0), torch.cat([source, source], dim=0)
-    ).chunk(2, dim=0)
-    d_metrics = discriminator_loss(real_pred, fake_pred)
+    with named_range("D-fwd"):
+        real_pred, fake_pred = disc(
+            torch.cat([real, fake], dim=0), torch.cat([source, source], dim=0)
+        ).chunk(2, dim=0)
+    with named_range("loss"):
+        d_metrics = discriminator_loss(real_pred, fake_pred)
     d_metrics["total_loss"].backward(inputs=list(disc.parameters()))
 
     _average_gradients(group, gen, disc)
-    state.g_optimizer.step()
-    state.d_optimizer.step()
+    with named_range("optimizer"):
+        state.g_optimizer.step()
+        state.d_optimizer.step()
     state.step += 1
     metrics = {f"generator/{k}": v.detach() for k, v in g_metrics.items()}
     metrics.update({f"discriminator/{k}": v.detach() for k, v in d_metrics.items()})
@@ -277,11 +317,14 @@ def make_train_chunk(config: Config, dataset_size: int, data_seed: int,
             sources, targets = pack_rows(sources), pack_rows(targets)
         history = []
         for _ in range(num_steps):
-            idx = batch_indices(
-                data_seed, state.step, dataset_size, config.batch_size, sources.device
-            )[rows]
-            history.append(step_fn(config, state, sources[idx], targets[idx], group))
-        return _mean_over_ranks(history, group)
+            with named_range("batch-gather"):
+                idx = batch_indices(
+                    data_seed, state.step, dataset_size, config.batch_size, sources.device
+                )[rows]
+                source, target = sources[idx], targets[idx]
+            history.append(step_fn(config, state, source, target, group))
+        with named_range("loss"):
+            return _mean_over_ranks(history, group)
 
     return train_chunk
 

@@ -10,13 +10,19 @@
     host clocks, (t_long - t_short) / (n_long - n_short), which cancel a
     fixed dispatch and fetch cost;
   - `StepTimer`: blocked host timing of steps;
-  - `debug_nans`: anomaly detection over a scope.
+  - `debug_nans`: anomaly detection over a scope;
+  - `card_line`: the card's name and power limit, as nvidia-smi gives
+    them, which every measurement prints beside its numbers;
+  - `write_build_json`: the measurement tools' JSON, written only under
+    the working directory's `build/`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import subprocess
 import time
 
 import torch
@@ -80,23 +86,38 @@ def device_events(prof) -> list:
     ]
 
 
+def device_seconds(prof) -> float:
+    """The summed device time, in seconds, of a finished profile's kernels,
+    copies and memsets: device_events' rows (device rows that are not an
+    annotated range), read from the profile's raw events without building
+    its host-side event list (seconds of Python for a chunk's profile)."""
+    from torch.autograd import DeviceType
+
+    return sum(
+        raw.duration_ns() for raw in prof.profiler.kineto_results.events()
+        if raw.device_type() != DeviceType.CPU and not raw.is_user_annotation()
+        and not raw.name().startswith("Optimizer.")
+    ) / 1e9
+
+
 def device_step_seconds(timed_fn, steps: int) -> float:
     """Seconds a step of device occupancy: `timed_fn(steps)` runs under
     torch.profiler, and the summed device time of the kernels, copies and
-    memsets it made is divided by `steps`. The kernels of one stream do
-    not overlap, so the sum is the time the device was busy; one device a
-    process. Raises RuntimeError without a CUDA device or when nothing ran
-    on it: a step time is never made up."""
+    memsets it made (device_seconds) is divided by `steps`. The kernels of
+    one stream do not overlap, so the sum is the time the device was busy;
+    one device a process. Only the device's activity is recorded: the
+    host's op rows count no device time. Raises RuntimeError without a
+    CUDA device or when nothing ran on it: a step time is never made up."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_step_seconds: PyTorch sees no CUDA device")
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=_profiler_activities()) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         timed_fn(steps)
         torch.cuda.synchronize()
-    total_us = sum(device_us(e) for e in device_events(prof))
-    if total_us <= 0:
+    total = device_seconds(prof)
+    if total <= 0:
         raise RuntimeError("device_step_seconds: the profile holds no device time")
-    return total_us / 1e6 / steps
+    return total / steps
 
 
 def marginal_step_seconds(timed_fn, steps: int, tries: int = 3) -> float | None:
@@ -195,3 +216,27 @@ class StepTimer:
             "steps_per_second": 1.0 / mean,
             "images_per_second": batch_size / mean,
         }
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def write_build_json(path: str, obj) -> str:
+    """Write `obj` as JSON to `path`, which must lie under `build/` of the
+    working directory (which .gitignore lists), so that no measurement
+    overwrites a file of the repository; returns the absolute path."""
+    build = os.path.realpath("build")
+    out = os.path.realpath(path)
+    if os.path.commonpath([build, out]) != build or out == build:
+        raise ValueError(f"{path!r}: the measurement tools write only under {build}")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump(obj, f, indent=1)
+    return out

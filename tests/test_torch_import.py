@@ -2,7 +2,9 @@
 
 * In a fresh interpreter: import the port (with its FID, export,
   serving, experiment, weight-conversion, Inception-conversion, FLOP-count,
-  profiling, InstanceNorm-moments (K6), A/B and kernel-table modules), train one step of a narrow histogram-variant Trainer and one
+  profiling, InstanceNorm-moments (K6), A/B and kernel-table modules, and the
+  measurement tools: the sweep, the serving benchmark, the components, the
+  roofline and the card's peaks), train one step of a narrow histogram-variant Trainer and one
   of a narrow indexed Trainer on the CPU (the plain augmentation and the
   plain palette index, since the tensors lie on the CPU), convert a keras
   discriminator archive with its CPU forward, take K6's moments of a CPU
@@ -31,7 +33,8 @@ PROGRAM = textwrap.dedent(
 
     import palette_and_histo_gan_tpu_torch as port
     from palette_and_histo_gan_tpu_torch import (
-        bench_in_stats, convert_inception, convert_weights, run_experiment, serve)
+        bench_in_stats, bench_infer, convert_inception, convert_weights, profile_components,
+        roofline, run_experiment, serve, sweep)
     from palette_and_histo_gan_tpu_torch.data import loader
     from palette_and_histo_gan_tpu_torch.eval import fid
     from palette_and_histo_gan_tpu_torch.models import export, inception
@@ -39,6 +42,7 @@ PROGRAM = textwrap.dedent(
     from palette_and_histo_gan_tpu_torch.ops import augment_kernel, moments, palette_kernel
     from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
     from palette_and_histo_gan_tpu_torch.utils import flops, profiling
+    from palette_and_histo_gan_tpu_torch.utils import roofline as peaks
 
     narrow = dict(down_filters=(8,) * 6, up_filters=(8,) * 6, batch_size=2,
                   dataset_sizes=(8,), temp_folder=sys.argv[1])
@@ -114,7 +118,9 @@ def test_port_sources_import_nothing_of_the_jax_package():
     sources.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(sources) > 20
     for module in ("convert_weights.py", "utils/flops.py", "utils/profiling.py",
-                   "models/convert.py", "bench_in_stats.py", "ops/moments.py", "kernels/table.py"):
+                   "models/convert.py", "bench_in_stats.py", "ops/moments.py", "kernels/table.py",
+                   "sweep.py", "bench_infer.py", "profile_components.py", "roofline.py",
+                   "utils/roofline.py"):
         assert os.path.join(REPO, "palette_and_histo_gan_tpu_torch", module) in sources, module
     bad = {
         os.path.relpath(path, REPO): sorted(
