@@ -143,8 +143,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      (phase_roofline): roofline.py for histogram "pallas2", baseline-no-aug
      and indexed at b1024 bfloat16; the groups sum to the profiled steps'
      device time within 1%, unattributed at most 5%, no group under 0.95
-     of its floor. Then the host cost of the step's named ranges
-     (range_cost_us).
+     of its floor.
+ 10b. the regime's entry points, on one seeded synthetic dataset root
+     (ref_regime.py's few-colour 250 / 44 pairs, PNGs) and each in this
+     process through its main. reference regime (phase_reference_regime):
+     compare_reference_train at full width, 126 steps (two epochs) with an
+     eval every 63, for baseline-no-aug, histogram and indexed, each
+     against the repository's JAX build record of its variant (another
+     step count: not compared); finite curves and eval L1s, the record's
+     keys a superset of that JAX record's, the first two steps' losses
+     within PARITY_RTOL of the same two steps on the CPU from the same
+     root, histogram launching K3b twice and K4b once a step, indexed K5
+     four times in its dataset build. measure_baseline
+     (phase_measure_baseline): the four variants for one epoch (63 steps)
+     with the Trainer's previews, L1 reports and checkpoints and the FID
+     reports (random InceptionV3 weights); finite L1s and FIDs, 63 steps,
+     the keys of baseline_results.json's entries, `train_chunk` among the
+     phases, each variant's launches (K1 once a step for baseline and
+     histogram, K3b twice and K4b once for histogram, K5 four times for
+     indexed, none for baseline-no-aug). bench (phase_bench): the port's
+     bench.py at b1024 bfloat16, 60 steps, its line printed; its img/s
+     within 5% of the histogram "pallas2" b1024 bfloat16 timed chunk's
+     device clock (the same program). Each phase's seconds printed. Then
+     the host cost of the step's named ranges (range_cost_us).
  11. FID (phase_fid), under deterministic cuDNN from here on: InceptionV3
      at input 299 (random numpy-drawn weights unless PHG_INCEPTION_WEIGHTS
      names converted ones); 22 images' activations
@@ -201,7 +222,11 @@ phase (lifecycle_launches), K1, K3b and K4b a data-parallel rank's in
 part 1 of the data-parallel phase (dp_rank_launches); K1 and K2 their
 launches on baseline's main path (baseline_launches); K1, K3b, K4b and
 K5 theirs in the CLI's dataset-root runs (dataset_root_launches); K1,
-K3b and K4b theirs in the sweep's process (sweep_launches). K6, at
+K3b and K4b theirs in the sweep's process (sweep_launches); the
+kernels that the regime's entry points launch, their launches in
+compare_reference_train's three runs (regime_launches), in
+measure_baseline's four fits (measure_baseline_launches) and in bench's
+run (bench_launches). K6, at
 MOMENTS_ENTRY_ROW, its launches those of the A/B, gives the A/B's forms A
 and B at that row (ab_ms), every A/B row (ab_rows) and the generator's
 InstanceNorm inputs at b1024 with form A's and K6's times
@@ -1598,23 +1623,6 @@ CLI_WITH_LAUNCHES = textwrap.dedent(
 )
 
 
-def write_dataset_root(root: str, config, arrays) -> None:
-    """(train_sources, train_targets, test_sources, test_targets) as PNGs
-    of config's source and target directions in the dataset's layout,
-    <root>/<train|test>/<i-direction>/<n>.png, by the port's stdlib PNG
-    writer (the card's machine has no PIL)."""
-    from palette_and_histo_gan_tpu_torch.config import DIRECTION_FOLDERS
-    from palette_and_histo_gan_tpu_torch.utils.visualization import _write_png
-
-    directions = (config.source_direction, config.target_direction)
-    for split, pair in (("train", arrays[:2]), ("test", arrays[2:])):
-        for direction, images in zip(directions, pair):
-            folder = os.path.join(root, split, DIRECTION_FOLDERS[direction])
-            os.makedirs(folder)
-            for i, img in enumerate(images):
-                _write_png(img, os.path.join(folder, f"{i}.png"))
-
-
 def phase_dataset_root(device) -> dict:
     """The Trainer's default data path on the card: the seeded synthetic
     sets (random sprites; the few-colour set for indexed) written as PNG
@@ -1628,6 +1636,7 @@ def phase_dataset_root(device) -> dict:
     from palette_and_histo_gan_tpu_torch.data import loader
     from palette_and_histo_gan_tpu_torch.native import png_io
     from palette_and_histo_gan_tpu_torch.ops import palette_kernel
+    from palette_and_histo_gan_tpu_torch.ref_regime import write_dataset_root
 
     base = os.path.abspath(os.path.join(TEMP_FOLDER, "dataset_root"))
     shutil.rmtree(base, ignore_errors=True)
@@ -2367,6 +2376,187 @@ def range_cost_us(n: int = 10000) -> dict:
     out["profiled_us_a_step"] = out["record_function_us"] * count[0]
     return out
 
+# ------------------------------------------------- the regime's entry points
+
+
+REGIME_STEPS = 126  # two epochs of 63 steps
+REGIME_EVAL_EVERY = 63
+REGIME_VARIANTS = ("baseline-no-aug", "histogram", "indexed")
+# the repository's JAX build records, whose keys the port's records hold
+REGIME_RECORDS = {"baseline-no-aug": "build_train_jax.json",
+                  "histogram": "build_train_jax_histogram.json",
+                  "indexed": "build_train_jax_indexed.json"}
+REGIME_PARITY_STEPS = 2
+BASELINE_EPOCHS = 1
+BENCH_BATCH, BENCH_STEPS = 1024, 60
+BENCH_VS_TIMED = 0.05  # bench's img/s against phase_timed_chunk's device clock
+
+
+def regime_root() -> str:
+    """A fresh seeded synthetic dataset root (ref_regime.py's few-colour
+    250 / 44 pairs) for the regime's entry points."""
+    from palette_and_histo_gan_tpu_torch.ref_regime import write_synthetic_root
+
+    base = os.path.abspath(os.path.join(TEMP_FOLDER, "regime"))
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    root = write_synthetic_root(os.path.join(base, "dataset"))
+    log("regime", f"synthetic root {root} written in {time.perf_counter() - t0:.1f} s")
+    return root
+
+
+def repo_json(name: str):
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), name)) as f:
+        return json.load(f)
+
+
+def run_entry_point(main, argv: list, what: str) -> tuple[list, dict]:
+    """`main(argv)` of a tool in this process, its output logged line by
+    line; returns the output's lines and the kernels' launches in it."""
+    import contextlib
+    import io
+
+    from palette_and_histo_gan_tpu_torch.sweep import launches_since, read_launches
+
+    buf = io.StringIO()
+    before = read_launches()
+    with contextlib.redirect_stdout(buf):
+        code = main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    launches = launches_since(before)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(what, line[:400])
+    if code != 0:
+        raise AssertionError(f"{what} {' '.join(argv)} returned {code}")
+    return lines, launches
+
+
+def phase_reference_regime(device, root: str) -> dict:
+    """compare_reference_train's main on the card at full width from the
+    synthetic root, REGIME_STEPS steps (an eval every REGIME_EVAL_EVERY) of
+    baseline-no-aug, histogram and indexed, each against the repository's
+    JAX build record of its variant (a different step count: "not
+    comparing"). Gates: finite curves and eval L1s; the record's keys a
+    superset of the JAX record's; the first REGIME_PARITY_STEPS steps'
+    losses equal to the same steps of the port on the CPU within
+    PARITY_RTOL; histogram launching K3b twice and K4b once a step (the
+    regime's float32 under "pallas2"), indexed K5 in its dataset build."""
+    from palette_and_histo_gan_tpu_torch import compare_reference_train as crt
+
+    out = {}
+    for variant in REGIME_VARIANTS:
+        path = os.path.join(TEMP_FOLDER, "regime", f"build_train_torch_{variant}.json")
+        _, launches = run_entry_point(crt.main, [
+            "--variant", variant, "--steps", str(REGIME_STEPS), "--eval-every",
+            str(REGIME_EVAL_EVERY), "--data-root", root, "--reference",
+            REGIME_RECORDS[variant], "--out", path, "--device", device.type], "regime")
+        with open(path) as f:
+            record = json.load(f)
+        values = [v for c in record["curves"].values() for v in c] + record["eval_l1"]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"regime {variant}: non-finite curves or eval L1s")
+        if any(len(c) != REGIME_STEPS for c in record["curves"].values()) or record[
+                "eval_steps"] != [1, REGIME_EVAL_EVERY, REGIME_STEPS]:
+            raise AssertionError(f"regime {variant}: curves of {[len(c) for c in record['curves'].values()]} "
+                                 f"steps, evals at {record['eval_steps']}")
+        missing = set(repo_json(REGIME_RECORDS[variant])) - set(record)
+        if missing:
+            raise AssertionError(f"regime {variant}: the record lacks the JAX record's {missing}")
+        need = ({"K3b": 2 * REGIME_STEPS, "K4b": REGIME_STEPS} if variant == "histogram"
+                else {"K5": 4} if variant == "indexed" else {})
+        wrong = {k: launches.get(k, 0) for k, n in need.items() if launches.get(k, 0) != n}
+        if device.type == "cuda" and wrong:
+            raise AssertionError(f"regime {variant}: launches {launches}; needed {need}")
+        cpu = crt.train(variant, REGIME_PARITY_STEPS, REGIME_PARITY_STEPS, root=root,
+                        device="cpu", histogram_impl=record["histogram_impl"])["curves"]
+        worst = max(abs(record["curves"][k][i] - v[i]) / max(abs(v[i]), 1e-12)
+                    for k, v in cpu.items() for i in range(REGIME_PARITY_STEPS))
+        log("regime", f"{variant}: {REGIME_STEPS} steps, {record['host_ms_per_step']:.3f} host "
+            f"ms/step, wall {record['wall_seconds']:.2f} s, test L1 {record['eval_l1']}, "
+            f"launches {launches}; first {REGIME_PARITY_STEPS} steps card vs CPU worst rel "
+            f"{worst:.2e} (tol {PARITY_RTOL})")
+        if worst > PARITY_RTOL:
+            raise AssertionError(f"regime {variant}: card and CPU steps differ by {worst:.2e}")
+        out[variant] = {"launches": launches, "host_ms_per_step": record["host_ms_per_step"],
+                        "wall_seconds": record["wall_seconds"], "eval_l1": record["eval_l1"],
+                        "parity": worst}
+    total = {}
+    for run in out.values():
+        for k, n in run["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return {"runs": out, "launches": total}
+
+
+def phase_measure_baseline(device, root: str) -> dict:
+    """measure_baseline's main on the card: the four variants for
+    BASELINE_EPOCHS epoch (63 steps) from the synthetic root, with the
+    Trainer's previews, L1 reports and checkpoints, FID on (random
+    InceptionV3 weights). Gates: finite L1s and FIDs, 63 steps, the keys
+    of baseline_results.json's entries, `train_chunk` among the phases;
+    K1 once a step for baseline and histogram, K3b twice and K4b once a
+    step for histogram, K5 in indexed's dataset build, none for
+    baseline-no-aug."""
+    from palette_and_histo_gan_tpu_torch import measure_baseline
+
+    path = os.path.join(TEMP_FOLDER, "baseline_results.json")
+    _, launches = run_entry_point(measure_baseline.main, [
+        "--epochs", str(BASELINE_EPOCHS), "--data-root", root, "--out", path, "--temp-folder",
+        os.path.join(TEMP_FOLDER, "measure_baseline"), "--device", device.type],
+        "measure_baseline")
+    with open(path) as f:
+        results = json.load(f)["results"]
+    keys = set(repo_json("baseline_results.json")["results"][0])
+    steps = 63 * BASELINE_EPOCHS
+    need = {"baseline-no-aug": {}, "baseline": {"K1": steps},
+            "histogram": {"K1": steps, "K3b": 2 * steps, "K4b": steps},
+            "indexed": {"K5": 4}}
+    for r in results:
+        v = r["variant"]
+        bad = [k for k in ("l1_train", "l1_test", "fid_train", "fid_test")
+               if not math.isfinite(r[k])]
+        if bad or r["steps"] != steps or not keys <= set(r) or "train_chunk" not in r[
+                "phase_seconds"]:
+            raise AssertionError(f"measure_baseline {v}: non-finite {bad}, {r['steps']} steps, "
+                                 f"missing keys {keys - set(r)}, phases {r['phase_seconds']}")
+        if device.type == "cuda" and r["launches"] != need[v]:
+            raise AssertionError(f"measure_baseline {v}: launches {r['launches']}; "
+                                 f"needed {need[v]}")
+        log("measure_baseline", f"{v}: {r['train_seconds']:.2f} s, {r['steps_per_second']:.2f} "
+            f"steps/s, phases {r['phase_seconds']}, L1 {r['l1_train']:.5f}/{r['l1_test']:.5f}, "
+            f"FID {r['fid_train']:.6g}/{r['fid_test']:.6g}, peak device memory "
+            f"{r['peak_device_memory_bytes']} bytes, launches {r['launches']}")
+    if [r["variant"] for r in results] != list(measure_baseline.VARIANTS):
+        raise AssertionError(f"measure_baseline ran {[r['variant'] for r in results]}")
+    return {"results": results, "launches": launches}
+
+
+def phase_bench(device, timed: dict) -> dict:
+    """The port's bench at BENCH_BATCH bfloat16 for BENCH_STEPS steps, its
+    line logged; its img/s (device clock) within BENCH_VS_TIMED of the
+    histogram "pallas2" b1024 bfloat16 timed chunk's device clock, the same
+    program."""
+    from unittest import mock
+
+    from palette_and_histo_gan_tpu_torch import bench
+
+    env = {"PHG_BENCH_BATCH": str(BENCH_BATCH), "PHG_BENCH_STEPS": str(BENCH_STEPS),
+           "PHG_BENCH_DTYPE": "bfloat16"}
+    with mock.patch.dict(os.environ, env):
+        lines, launches = run_entry_point(
+            bench.main, ["--device", device.type, "--out", os.path.join(TEMP_FOLDER, "bench.json")],
+            "bench")
+    record = json.loads(lines[-1])
+    want = BENCH_BATCH / (timed["device_ms_per_step"] / 1e3)
+    off = abs(record["value"] - want) / want
+    log("bench", f"{record['value']:.1f} img/s against the timed chunk's {want:.1f}: "
+        f"{100 * off:.2f}% apart (gate {100 * BENCH_VS_TIMED:.0f}%); launches {launches}")
+    if record["vs_baseline"] is not None or device.type == "cuda" and (
+            record["clock"] != "device" or off > BENCH_VS_TIMED):
+        raise AssertionError(f"bench: {record}; {100 * off:.2f}% from the timed chunk")
+    return {"record": record, "launches": launches, "vs_timed": off}
+
 
 # ------------------------------------------------------------------- main
 
@@ -2553,6 +2743,16 @@ def main() -> int:
         tools[name] = phase()
         tools[name]["phase_s"] = time.perf_counter() - t0
         log(name, f"phase {tools[name]['phase_s']:.1f} s")
+    root = regime_root()
+    for name, phase in (
+        ("regime", lambda: phase_reference_regime(device, root)),
+        ("measure_baseline", lambda: phase_measure_baseline(device, root)),
+        ("bench", lambda: phase_bench(device, bf16["pallas2"])),
+    ):
+        t0 = time.perf_counter()
+        tools[name] = phase()
+        tools[name]["phase_s"] = time.perf_counter() - t0
+        log(name, f"phase {tools[name]['phase_s']:.1f} s")
     ranges = range_cost_us()
     log("ranges", f"{ranges['ranges_a_step']} named ranges a b4 f32 histogram step: "
         f"{ranges['named_range_us']:.2f} us a range outside a profile, {ranges['us_a_step']:.1f} "
@@ -2617,6 +2817,15 @@ def main() -> int:
         name = {"augment_packed": "packed"}.get(entry["name"], entry["name"])
         if tools["sweep"]["launches"].get(name):
             entry["sweep_launches"] = tools["sweep"]["launches"][name]
+    # the launches of the regime's entry points: compare_reference_train's
+    # three runs, measure_baseline's four fits, bench's process of steps
+    for entry in kernels:
+        name = {"augment_packed": "K1", "augment_rgba": "K2"}.get(entry["name"], entry["name"])
+        for key, n in (("regime_launches", tools["regime"]["launches"].get(name)),
+                       ("measure_baseline_launches", tools["measure_baseline"]["launches"].get(name)),
+                       ("bench_launches", tools["bench"]["launches"].get(name))):
+            if n:
+                entry[key] = n
     # K3a beside the bound of its products as float32 FMAs
     k3a = next(e for e in kernels if e["name"] == "K3a")
     k3a["bound_f32_fma_ms"] = hist["times"][("K3a fma", 1024)][0]
@@ -2690,6 +2899,12 @@ def main() -> int:
         + "; roofline b1024 bf16 unattributed " + ", ".join(
             f"{v} {100 * tools['roofline'][v]['unattributed_share']:.2f}%"
             for v in ROOFLINE_VARIANTS)
+        + f"; bench {tools['bench']['record']['value']:.1f} img/s b{BENCH_BATCH} bf16 "
+        + f"({100 * tools['bench']['vs_timed']:.2f}% from the timed chunk)"
+        + "; regime host ms/step " + ", ".join(
+            f"{v} {tools['regime']['runs'][v]['host_ms_per_step']:.3f}" for v in REGIME_VARIANTS)
+        + "; measure_baseline (1 epoch) s " + ", ".join(
+            f"{r['variant']} {r['train_seconds']:.2f}" for r in tools["measure_baseline"]["results"])
         + "; tool phases " + ", ".join(f"{k} {v['phase_s']:.1f} s" for k, v in tools.items())
         + f"; smoke {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -182,8 +182,9 @@ class FidEvaluator:
         value = fid.compare(real_images, fake_images)
 
     Images are (N, H, W, C) arrays or tensors (C = 3 or 4) or directories of
-    PNGs. PHG_INCEPTION_WEIGHTS names converted pretrained weights
-    (models/inception.py); unset, the weights are random.
+    PNGs. `weights`, by default PHG_INCEPTION_WEIGHTS, names converted
+    pretrained weights (models/inception.py); with neither, the weights
+    are random.
 
     With `group` (parallel/mesh.py::DataGroup; every rank calls with the
     same images), batch_size is rounded up to a multiple of the world size,
@@ -192,11 +193,12 @@ class FidEvaluator:
     change (JAX: FidEvaluator(mesh=))."""
 
     def __init__(self, batch_size: int = 11, reference_quirks: bool = True,
-                 input_size: int = 299, device: torch.device | str = "cuda", group=None):
+                 input_size: int = 299, device: torch.device | str = "cuda", group=None,
+                 weights: str | None = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' asked for, but PyTorch sees no CUDA device")
-        self.model = inception.load_params(input_size, self.device)
+        self.model = inception.load_params(input_size, self.device, weights)
         self.group = group
         if group is not None:
             batch_size = -(-batch_size // group.world_size) * group.world_size

@@ -208,23 +208,25 @@ def random_flat_params(module: InceptionV3, seed: int = RANDOM_INIT_SEED) -> dic
     return flat
 
 
-def load_params(input_size: int = 299, device: torch.device | str = "cuda") -> InceptionV3:
+def load_params(input_size: int = 299, device: torch.device | str = "cuda",
+                weights: str | None = None) -> InceptionV3:
     """InceptionV3 in eval mode on `device`, for inputs of `input_size`
-    pixels a side: pretrained from the .npz that PHG_INCEPTION_WEIGHTS
-    names (strict: a missing, extra or mis-shaped key raises), or, with
-    the variable unset, random (`random_flat_params`). A variable that
-    names no file raises: a FID of random weights is never reported in
-    place of a pretrained one."""
+    pixels a side: pretrained from the .npz that `weights` names, by
+    default the one PHG_INCEPTION_WEIGHTS names (strict: a missing, extra
+    or mis-shaped key raises), or, with neither given, random
+    (`random_flat_params`). A path that names no file raises: a FID of
+    random weights is never reported in place of a pretrained one."""
     from .convert import inception_state_dict_from_flat
 
     if input_size < MIN_INPUT_SIZE:
         raise ValueError(f"InceptionV3 needs inputs of at least {MIN_INPUT_SIZE} pixels, "
                          f"got {input_size}")
     model = InceptionV3()
-    path = os.environ.get(WEIGHTS_ENV, "")
+    path = weights or os.environ.get(WEIGHTS_ENV, "")
     if path:
         if not os.path.isfile(path):
-            raise FileNotFoundError(f"{WEIGHTS_ENV}={path!r} names no file")
+            raise FileNotFoundError(f"{'weights' if weights else WEIGHTS_ENV}={path!r} "
+                                    "names no file")
         with np.load(path) as f:
             flat = {k: f[k] for k in f.files}
     else:

@@ -173,6 +173,19 @@ def test_weights_file_is_loaded_and_a_missing_one_raises(tmp_path, monkeypatch, 
     assert torch.equal(model.units[93].weight, torch.from_numpy(np.ascontiguousarray(kernel)))
 
 
+def test_weights_argument_comes_before_the_variable(tmp_path, monkeypatch, random_flat):
+    """`weights` names the file in place of PHG_INCEPTION_WEIGHTS, and a
+    `weights` naming no file raises even with the variable unset."""
+    monkeypatch.delenv(inception.WEIGHTS_ENV, raising=False)
+    with pytest.raises(FileNotFoundError, match="nowhere.npz"):
+        fid.FidEvaluator(input_size=SIZE, device="cpu", weights=str(tmp_path / "nowhere.npz"))
+    flat = {k: v + np.float32(0.25) for k, v in random_flat.items()}
+    np.savez(tmp_path / "weights.npz", **flat)
+    monkeypatch.setenv(inception.WEIGHTS_ENV, str(tmp_path / "missing.npz"))
+    ev = fid.FidEvaluator(input_size=SIZE, device="cpu", weights=str(tmp_path / "weights.npz"))
+    assert torch.equal(ev.model.units[7].var, torch.from_numpy(flat["params/ConvBN_7/var"]))
+
+
 def test_random_weights_are_he_normal_from_seed_0(random_flat):
     again = inception.random_flat_params(inception.InceptionV3())
     assert all(np.array_equal(v, again[k]) for k, v in random_flat.items())

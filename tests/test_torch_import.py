@@ -4,8 +4,10 @@
   serving, experiment, weight-conversion, Inception-conversion, FLOP-count,
   profiling, InstanceNorm-moments (K6), A/B and kernel-table modules, and the
   measurement tools: the sweep, the serving benchmark, the components, the
-  roofline and the card's peaks), train one step of a narrow histogram-variant Trainer and one
-  of a narrow indexed Trainer on the CPU (the plain augmentation and the
+  roofline and the card's peaks, the comparison regime, the training-quality
+  comparison, the measured baseline and the benchmark), train one step of a
+  narrow histogram-variant Trainer and one of a narrow indexed Trainer on
+  the CPU (the plain augmentation and the
   plain palette index, since the tensors lie on the CPU), convert a keras
   discriminator archive with its CPU forward, take K6's moments of a CPU
   tensor (its plain version), and check that neither
@@ -13,7 +15,7 @@
   TensorFlow (only the Inception conversion imports it, when it runs),
   and that no CUDA kernel was launched.
 * An AST scan of the port's sources and of chip_smoke.py finds no import
-  of the JAX package or of JAX.
+  of the JAX package, of JAX or of the repository's tests.
 """
 
 import ast
@@ -25,7 +27,9 @@ import sys
 import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("palette_and_histo_gan_tpu", "jax")
+# the JAX package, JAX, and the repository's tests (the port keeps its own
+# copy of what it needs from tests/parity_utils.py)
+FORBIDDEN = ("palette_and_histo_gan_tpu", "jax", "tests")
 
 PROGRAM = textwrap.dedent(
     """
@@ -33,8 +37,9 @@ PROGRAM = textwrap.dedent(
 
     import palette_and_histo_gan_tpu_torch as port
     from palette_and_histo_gan_tpu_torch import (
-        bench_in_stats, bench_infer, convert_inception, convert_weights, profile_components,
-        roofline, run_experiment, serve, sweep)
+        bench, bench_in_stats, bench_infer, compare_reference_train, convert_inception,
+        convert_weights, measure_baseline, profile_components, ref_regime, roofline,
+        run_experiment, serve, sweep)
     from palette_and_histo_gan_tpu_torch.data import loader
     from palette_and_histo_gan_tpu_torch.eval import fid
     from palette_and_histo_gan_tpu_torch.models import export, inception
@@ -120,7 +125,8 @@ def test_port_sources_import_nothing_of_the_jax_package():
     for module in ("convert_weights.py", "utils/flops.py", "utils/profiling.py",
                    "models/convert.py", "bench_in_stats.py", "ops/moments.py", "kernels/table.py",
                    "sweep.py", "bench_infer.py", "profile_components.py", "roofline.py",
-                   "utils/roofline.py"):
+                   "utils/roofline.py", "ref_regime.py", "compare_reference_train.py",
+                   "measure_baseline.py", "bench.py"):
         assert os.path.join(REPO, "palette_and_histo_gan_tpu_torch", module) in sources, module
     bad = {
         os.path.relpath(path, REPO): sorted(
