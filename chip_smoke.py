@@ -146,11 +146,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      of its floor.
  10b. the regime's entry points, on one seeded synthetic dataset root
      (ref_regime.py's few-colour 250 / 44 pairs, PNGs) and each in this
-     process through its main. reference regime (phase_reference_regime):
+     process through its main. shared_inception
+     (phase_shared_inception): `convert_inception --shared-init F` writes
+     scripts/make_shared_inception.py's shared-init InceptionV3 without
+     TensorFlow, timed; F's digest the pinned one; 22 sprites'
+     activations at input 299 from F on the card within 1e-4 of the CPU's
+     largest, both quirk modes, and their spread across images above
+     SHARED_SPREAD_REL. reference regime (phase_reference_regime):
      compare_reference_train at full width, 126 steps (two epochs) with an
      eval every 63, for baseline-no-aug, histogram and indexed, each
      against the repository's JAX build record of its variant (another
-     step count: not compared); finite curves and eval L1s, the record's
+     step count: not compared), the RGBA variants with their FID at steps
+     63 and 126 on F; finite curves, eval L1s and FIDs, the low-rank FID
+     within REGIME_FID_REL of the scipy one, the record's
      keys a superset of that JAX record's, the first two steps' losses
      within PARITY_RTOL of the same two steps on the CPU from the same
      root, histogram launching K3b twice and K4b once a step, indexed K5
@@ -161,7 +169,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      the keys of baseline_results.json's entries, `train_chunk` among the
      phases, each variant's launches (K1 once a step for baseline and
      histogram, K3b twice and K4b once for histogram, K5 four times for
-     indexed, none for baseline-no-aug). bench (phase_bench): the port's
+     indexed, none for baseline-no-aug). measure_baseline_dp
+     (phase_measure_baseline_dp): `torchrun --standalone
+     --nproc-per-node=<cards> -m palette_and_histo_gan_tpu_torch.
+     measure_baseline --epochs 1 --variants baseline-no-aug histogram`
+     over NCCL (one card: a world of one) with per-rank logs and the audit
+     hook: only rank 0 prints and writes, and it wrote the record;
+     `world_size` the cards; each rank's launches K1 63, K3b 126, K4b 63;
+     L1s and FIDs finite and within BASELINE_DP_REL of measure_baseline's
+     record. bench (phase_bench): the port's
      bench.py at b1024 bfloat16, 60 steps, its line printed; its img/s
      within 5% of the histogram "pallas2" b1024 bfloat16 timed chunk's
      device clock (the same program). Each phase's seconds printed. Then
@@ -225,8 +241,9 @@ K5 theirs in the CLI's dataset-root runs (dataset_root_launches); K1,
 K3b and K4b theirs in the sweep's process (sweep_launches); the
 kernels that the regime's entry points launch, their launches in
 compare_reference_train's three runs (regime_launches), in
-measure_baseline's four fits (measure_baseline_launches) and in bench's
-run (bench_launches). K6, at
+measure_baseline's four fits (measure_baseline_launches), in rank 0 of
+measure_baseline under torchrun (measure_baseline_dp_rank_launches) and in
+bench's run (bench_launches). K6, at
 MOMENTS_ENTRY_ROW, its launches those of the A/B, gives the A/B's forms A
 and B at that row (ab_ms), every A/B row (ab_rows) and the generator's
 InstanceNorm inputs at b1024 with form A's and K6's times
@@ -1703,7 +1720,9 @@ def phase_dataset_root(device) -> dict:
 
 # installed in each torchrun rank (PYTHONPATH): records the paths under the
 # working directory that the rank opens for writing, creates, renames or
-# removes, and writes them to $PHG_AUDIT_DIR/rank<RANK>.json at exit
+# removes, and writes them to $PHG_AUDIT_DIR/rank<RANK>.json at exit, with
+# the kernels' launches in the rank where the port's sweep module (which
+# counts them) was loaded
 AUDIT_SITECUSTOMIZE = textwrap.dedent(
     """
     import atexit, json, os, sys
@@ -1727,14 +1746,63 @@ AUDIT_SITECUSTOMIZE = textwrap.dedent(
             _writes.append([event, path])
 
     def _report():
+        sweep = sys.modules.get("palette_and_histo_gan_tpu_torch.sweep")
+        launches = sweep.read_launches() if sweep is not None else None
         with open(os.path.join(os.environ["PHG_AUDIT_DIR"], f"rank{_rank}.json"), "w") as f:
-            json.dump(_writes, f)
+            json.dump({"writes": _writes, "launches": launches}, f)
 
     if _rank is not None:
         sys.addaudithook(_audit)
         atexit.register(_report)
     """
 )
+
+
+def torchrun_audited(name: str, world: int, argv: list) -> dict:
+    """`torchrun --standalone --nproc-per-node=<world> <argv>` in a fresh
+    working directory under TEMP_FOLDER/<name>, with per-rank logs and the
+    audit hook in each rank; fails unless it exits 0. Returns the working
+    directory, the seconds, and by rank what it printed, the paths it wrote
+    and its launches (None where the port's sweep module was not loaded)."""
+    import glob
+
+    torchrun = shutil.which("torchrun") or os.path.join(os.path.dirname(sys.executable), "torchrun")
+    if not os.path.isfile(torchrun):
+        raise AssertionError("torchrun is not on PATH nor beside the interpreter")
+    base = os.path.abspath(os.path.join(TEMP_FOLDER, name))
+    shutil.rmtree(base, ignore_errors=True)
+    run, audit, logs, site = (os.path.join(base, d) for d in ("run", "audit", "logs", "site"))
+    for d in (run, audit, site):
+        os.makedirs(d)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(AUDIT_SITECUSTOMIZE)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([site, repo]), PHG_AUDIT_DIR=audit)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [torchrun, "--standalone", f"--nproc-per-node={world}", "--log-dir", logs,
+         "--redirects", "1", *argv], cwd=run, env=env, capture_output=True, text=True, timeout=600,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{name}: torchrun exited {proc.returncode}: {proc.stderr[-3000:]}")
+    stdout = {}
+    for path in glob.glob(os.path.join(logs, "**", "stdout.log"), recursive=True):
+        with open(path) as f:
+            stdout[int(os.path.basename(os.path.dirname(path)))] = f.read()
+    if sorted(stdout) != list(range(world)):
+        raise AssertionError(f"{name}: torchrun logged ranks {sorted(stdout)}, expected {world}")
+    writes, launches = {}, {}
+    for rank in range(world):
+        with open(os.path.join(audit, f"rank{rank}.json")) as f:
+            report = json.load(f)
+        writes[rank], launches[rank] = report["writes"], report["launches"]
+    loud = {r: stdout[r][-500:] for r in range(1, world) if stdout[r]}
+    wrote = {r: writes[r][:5] for r in range(1, world) if writes[r]}
+    if loud or wrote:
+        raise AssertionError(f"{name}: ranks above 0 printed {loud} or wrote {wrote}")
+    return {"run": run, "seconds": seconds, "stdout": stdout, "writes": writes,
+            "launches": launches}
 
 
 def phase_torchrun(device) -> dict:
@@ -1747,55 +1815,20 @@ def phase_torchrun(device) -> dict:
     rank). A machine without torchrun fails the phase."""
     world = torch.cuda.device_count() if device.type == "cuda" else 2
     backend = "nccl" if device.type == "cuda" else "gloo"
-    torchrun = shutil.which("torchrun") or os.path.join(os.path.dirname(sys.executable), "torchrun")
-    if not os.path.isfile(torchrun):
-        raise AssertionError("torchrun is not on PATH nor beside the interpreter")
-    base = os.path.abspath(os.path.join(TEMP_FOLDER, "torchrun"))
-    shutil.rmtree(base, ignore_errors=True)
-    run, audit, logs, site = (os.path.join(base, d) for d in ("run", "audit", "logs", "site"))
-    for d in (run, audit, site):
-        os.makedirs(d)
-    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
-        f.write(AUDIT_SITECUSTOMIZE)
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([site, repo]), PHG_AUDIT_DIR=audit)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [torchrun, "--standalone", f"--nproc-per-node={world}", "--log-dir", logs,
-         "--redirects", "1", "-m", "palette_and_histo_gan_tpu_torch.cli", "--device",
-         device.type, "--model", "histogram", "--synthetic", "--data-parallel", "on", "--batch-size", "8",
-         "--steps", "4", "--update-steps", "2"],
-        cwd=run, env=env, capture_output=True, text=True, timeout=600,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"torchrun exited {proc.returncode}: {proc.stderr[-3000:]}")
-    import glob
-
-    stdout = {}
-    for path in glob.glob(os.path.join(logs, "**", "stdout.log"), recursive=True):
-        with open(path) as f:
-            stdout[int(os.path.basename(os.path.dirname(path)))] = f.read()
-    writes = {}
-    for rank in range(world):
-        with open(os.path.join(audit, f"rank{rank}.json")) as f:
-            writes[rank] = json.load(f)
-    start = [line for line in stdout.get(0, "").splitlines() if line.startswith("Starting training")]
-    log("torchrun", f"{world} rank(s) over {backend}: exit 0 in {seconds:.1f} s; rank 0: {start}; "
-        f"rank 0 wrote {len(writes[0])} paths; ranks above 0 printed "
-        f"{sum(len(stdout.get(r, '')) for r in range(1, world))} characters and wrote "
-        f"{sum(len(writes[r]) for r in range(1, world))} paths")
-    if sorted(stdout) != list(range(world)):
-        raise AssertionError(f"torchrun logged ranks {sorted(stdout)}, expected {world}")
+    ran = torchrun_audited("torchrun", world, [
+        "-m", "palette_and_histo_gan_tpu_torch.cli", "--device", device.type, "--model",
+        "histogram", "--synthetic", "--data-parallel", "on", "--batch-size", "8", "--steps", "4",
+        "--update-steps", "2"])
+    writes = ran["writes"]
+    start = [line for line in ran["stdout"][0].splitlines() if line.startswith("Starting training")]
+    log("torchrun", f"{world} rank(s) over {backend}: exit 0 in {ran['seconds']:.1f} s; rank 0: "
+        f"{start}; rank 0 wrote {len(writes[0])} paths; ranks above 0 printed nothing and wrote "
+        "nothing")
     if len(start) != 1 or f"data parallel, {backend} x {world} ranks" not in start[0]:
         raise AssertionError(f"rank 0 did not print the start-up line over {backend}: {start}")
     if not any("training-checkpoints" in p for _, p in writes[0]):
         raise AssertionError("rank 0 wrote no checkpoint (or the audit hook saw no write)")
-    loud = {r: stdout[r][-500:] for r in range(1, world) if stdout[r]}
-    wrote = {r: writes[r][:5] for r in range(1, world) if writes[r]}
-    if loud or wrote:
-        raise AssertionError(f"ranks above 0 printed {loud} or wrote {wrote}")
-    return {"world": world, "seconds": seconds}
+    return {"world": world, "seconds": ran["seconds"]}
 
 
 # ---------------------------------------------------------- data parallel
@@ -2387,9 +2420,75 @@ REGIME_RECORDS = {"baseline-no-aug": "build_train_jax.json",
                   "histogram": "build_train_jax_histogram.json",
                   "indexed": "build_train_jax_indexed.json"}
 REGIME_PARITY_STEPS = 2
+REGIME_FID_AT = (63, 126)  # the RGBA variants' FID curve, on the shared-init InceptionV3
+# the port's low-rank FID against the reference's scipy formula on the same
+# activations (tests/test_torch_compare_reference_train.py's rtol)
+REGIME_FID_REL = 1e-3
 BASELINE_EPOCHS = 1
+# measure_baseline under torchrun on every card (phase_measure_baseline_dp)
+BASELINE_DP_VARIANTS = ("baseline-no-aug", "histogram")
+BASELINE_DP_LAUNCHES = {"K1": 63, "K3b": 126, "K4b": 63}  # a rank's, both variants
+# rank 0's L1 and FID against phase_measure_baseline's record: another process
+# picks its cuDNN algorithms anew, and 63 GAN steps carry those last-bit
+# differences to up to 5.9e-3 of the FID at world size 1 on one H100
+BASELINE_DP_REL = 5e-2
+# the shared-init features' spread across images over their mean |value|,
+# by quirk mode: Keras' glorot kernels would leave ~2^-47 (the script's note)
+SHARED_SPREAD_REL = {True: 1e-5, False: 1e-3}
 BENCH_BATCH, BENCH_STEPS = 1024, 60
 BENCH_VS_TIMED = 0.05  # bench's img/s against phase_timed_chunk's device clock
+
+
+def phase_shared_inception(device) -> dict:
+    """The shared-init InceptionV3 of scripts/make_shared_inception.py (the
+    extractor of the repository's FID curves), drawn without TensorFlow by
+    `python -m palette_and_histo_gan_tpu_torch.convert_inception
+    --shared-init F` (its main, in this process, timed) under TEMP_FOLDER.
+    Gates: F's digest the one the CPU tests pin
+    (models/inception.py::SHARED_INIT_SHA256); 22 sprites' activations at
+    input 299 from F on the card within FID_ACT_REL of the largest of the
+    CPU's, in both quirk modes; their spread across images (the mean over
+    features of the standard deviation over images, over the mean
+    |activation|) above SHARED_SPREAD_REL. Returns F's path and the numbers."""
+    from palette_and_histo_gan_tpu_torch import convert_inception
+    from palette_and_histo_gan_tpu_torch.eval import fid
+    from palette_and_histo_gan_tpu_torch.models import inception
+
+    base = os.path.abspath(os.path.join(TEMP_FOLDER, "shared_inception"))
+    shutil.rmtree(base, ignore_errors=True)
+    path = os.path.join(base, "inception_shared.npz")
+    t0 = time.perf_counter()
+    run_entry_point(convert_inception.main, ["--shared-init", path], "shared_inception")
+    out = {"path": path, "command_s": time.perf_counter() - t0}
+    with np.load(path) as f:
+        out["digest"] = inception.flat_digest({k: f[k] for k in f.files})
+    log("shared_inception", f"{path}: sha256 {out['digest']}, pinned "
+        f"{inception.SHARED_INIT_SHA256}; the command took {out['command_s']:.2f} s")
+    if out["digest"] != inception.SHARED_INIT_SHA256:
+        raise AssertionError(f"shared-init weights: digest {out['digest']}")
+    card_ev = fid.FidEvaluator(FID_BATCH, device=device, weights=path)
+    cpu_ev = fid.FidEvaluator(FID_BATCH, device="cpu", weights=path)
+    sprites = fid_sprites(22, SEED + 3)
+    for quirks, x in ((True, sprites.astype(np.float32) / 127.5 - 1.0),
+                      (False, sprites.astype(np.float32))):
+        card_ev.reference_quirks = cpu_ev.reference_quirks = quirks
+        got, want = card_ev.activations(x).cpu(), cpu_ev.activations(x)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        acts = got.double()
+        spread = float(acts.std(dim=0).mean())
+        rel = spread / float(acts.abs().mean())
+        out[f"quirks_{quirks}"] = {"err": err, "scale": scale, "spread": spread,
+                                   "spread_rel": rel}
+        log("shared_inception", f"quirks {quirks}: card vs CPU activations max abs {err:.3e} "
+            f"({err / scale:.3e} of max |act| {scale:.4f}; tol {FID_ACT_REL}); spread across "
+            f"22 images {spread:.4e}, {rel:.3e} of the mean |act| (gate "
+            f"{SHARED_SPREAD_REL[quirks]})")
+        if not err <= FID_ACT_REL * scale:
+            raise AssertionError(f"shared-init activations, quirks {quirks}: card vs CPU {err}")
+        if not rel > SHARED_SPREAD_REL[quirks]:
+            raise AssertionError(f"shared-init features, quirks {quirks}: spread {rel} of the "
+                                 "mean: degenerate")
+    return out
 
 
 def regime_root() -> str:
@@ -2433,12 +2532,15 @@ def run_entry_point(main, argv: list, what: str) -> tuple[list, dict]:
     return lines, launches
 
 
-def phase_reference_regime(device, root: str) -> dict:
+def phase_reference_regime(device, root: str, inception_npz: str) -> dict:
     """compare_reference_train's main on the card at full width from the
     synthetic root, REGIME_STEPS steps (an eval every REGIME_EVAL_EVERY) of
     baseline-no-aug, histogram and indexed, each against the repository's
     JAX build record of its variant (a different step count: "not
-    comparing"). Gates: finite curves and eval L1s; the record's keys a
+    comparing"); the RGBA variants with their FID curve at REGIME_FID_AT on
+    the shared-init InceptionV3 at `inception_npz`. Gates: finite curves,
+    eval L1s and FIDs; the FID at REGIME_FID_AT, its low-rank value within
+    REGIME_FID_REL of the scipy one; the record's keys a
     superset of the JAX record's; the first REGIME_PARITY_STEPS steps'
     losses equal to the same steps of the port on the CPU within
     PARITY_RTOL; histogram launching K3b twice and K4b once a step (the
@@ -2448,15 +2550,29 @@ def phase_reference_regime(device, root: str) -> dict:
     out = {}
     for variant in REGIME_VARIANTS:
         path = os.path.join(TEMP_FOLDER, "regime", f"build_train_torch_{variant}.json")
+        fid_args = [] if variant == "indexed" else [
+            "--fid-at", ",".join(map(str, REGIME_FID_AT)), "--inception-npz", inception_npz]
         _, launches = run_entry_point(crt.main, [
             "--variant", variant, "--steps", str(REGIME_STEPS), "--eval-every",
             str(REGIME_EVAL_EVERY), "--data-root", root, "--reference",
-            REGIME_RECORDS[variant], "--out", path, "--device", device.type], "regime")
+            REGIME_RECORDS[variant], "--out", path, "--device", device.type, *fid_args], "regime")
         with open(path) as f:
             record = json.load(f)
-        values = [v for c in record["curves"].values() for v in c] + record["eval_l1"]
+        fids = record.get("fid", []) + record.get("fid_lowrank", [])
+        values = [v for c in record["curves"].values() for v in c] + record["eval_l1"] + fids
         if not all(math.isfinite(v) for v in values):
-            raise AssertionError(f"regime {variant}: non-finite curves or eval L1s")
+            raise AssertionError(f"regime {variant}: non-finite curves, eval L1s or FIDs")
+        fid_rel = None
+        if fid_args:
+            if record["fid_steps"] != list(REGIME_FID_AT):
+                raise AssertionError(f"regime {variant}: FID at {record['fid_steps']}")
+            fid_rel = max(abs(lo - sc) / abs(sc) for sc, lo in zip(record["fid"],
+                                                                  record["fid_lowrank"]))
+            log("regime", f"{variant}: FID at {record['fid_steps']} scipy {record['fid']}, "
+                f"low-rank {record['fid_lowrank']}; worst relative gap {fid_rel:.2e} (tol "
+                f"{REGIME_FID_REL})")
+            if fid_rel > REGIME_FID_REL:
+                raise AssertionError(f"regime {variant}: low-rank FID {fid_rel:.2e} from scipy's")
         if any(len(c) != REGIME_STEPS for c in record["curves"].values()) or record[
                 "eval_steps"] != [1, REGIME_EVAL_EVERY, REGIME_STEPS]:
             raise AssertionError(f"regime {variant}: curves of {[len(c) for c in record['curves'].values()]} "
@@ -2481,7 +2597,8 @@ def phase_reference_regime(device, root: str) -> dict:
             raise AssertionError(f"regime {variant}: card and CPU steps differ by {worst:.2e}")
         out[variant] = {"launches": launches, "host_ms_per_step": record["host_ms_per_step"],
                         "wall_seconds": record["wall_seconds"], "eval_l1": record["eval_l1"],
-                        "parity": worst}
+                        "parity": worst, "fid": record.get("fid"),
+                        "fid_lowrank": record.get("fid_lowrank"), "fid_rel": fid_rel}
     total = {}
     for run in out.values():
         for k, n in run["launches"].items():
@@ -2530,6 +2647,58 @@ def phase_measure_baseline(device, root: str) -> dict:
     if [r["variant"] for r in results] != list(measure_baseline.VARIANTS):
         raise AssertionError(f"measure_baseline ran {[r['variant'] for r in results]}")
     return {"results": results, "launches": launches}
+
+
+def phase_measure_baseline_dp(device, root: str, single: list) -> dict:
+    """`torchrun --standalone --nproc-per-node=N -m
+    palette_and_histo_gan_tpu_torch.measure_baseline --epochs 1 --variants
+    baseline-no-aug histogram` over NCCL, N every card of the machine (one
+    card: a world of one; on the CPU two ranks over Gloo), from the regime's
+    root, through torchrun_audited. Gates: exit 0; only rank 0 prints and
+    writes (the audit hook), and it wrote the record; the record's
+    `world_size` N, 63 steps a variant; each rank's launches
+    BASELINE_DP_LAUNCHES on a card; rank 0's L1s and FIDs finite and within
+    BASELINE_DP_REL of `single`, phase_measure_baseline's one-process
+    record of the same variants (the same FID weights: random, seed 0)."""
+    world = torch.cuda.device_count() if device.type == "cuda" else 2
+    ran = torchrun_audited("measure_baseline_dp", world, [
+        "-m", "palette_and_histo_gan_tpu_torch.measure_baseline", "--epochs",
+        str(BASELINE_EPOCHS), "--variants", *BASELINE_DP_VARIANTS, "--data-root", root,
+        "--device", device.type])
+    path = os.path.join(ran["run"], "build", "baseline_results.json")
+    if not any(p == path for _, p in ran["writes"][0]):
+        raise AssertionError(f"measure_baseline_dp: rank 0 did not write {path}")
+    with open(path) as f:
+        record = json.load(f)
+    if record["world_size"] != world or [r["variant"] for r in record["results"]] != list(
+            BASELINE_DP_VARIANTS):
+        raise AssertionError(f"measure_baseline_dp: world_size {record['world_size']} of "
+                             f"{world}, variants {[r['variant'] for r in record['results']]}")
+    launches = {r: {k: n for k, n in (counts or {}).items() if n}
+                for r, counts in ran["launches"].items()}
+    log("measure_baseline_dp", f"{world} rank(s): exit 0 in {ran['seconds']:.1f} s; world_size "
+        f"{record['world_size']}; launches by rank {launches}; rank 0 wrote "
+        f"{len(ran['writes'][0])} paths, ranks above 0 printed nothing and wrote nothing")
+    if device.type == "cuda" and any(n != BASELINE_DP_LAUNCHES for n in launches.values()):
+        raise AssertionError(f"measure_baseline_dp: launches {launches}; each rank needed "
+                             f"{BASELINE_DP_LAUNCHES}")
+    want = {r["variant"]: r for r in single}
+    worst = 0.0
+    for r in record["results"]:
+        v, ref = r["variant"], want[r["variant"]]
+        keys = ("l1_train", "l1_test", "fid_train", "fid_test")
+        if r["steps"] != 63 * BASELINE_EPOCHS or not all(math.isfinite(r[k]) for k in keys):
+            raise AssertionError(f"measure_baseline_dp {v}: {r}")
+        rel = {k: abs(r[k] - ref[k]) / abs(ref[k]) for k in keys}
+        worst = max(worst, *rel.values())
+        log("measure_baseline_dp", f"{v}: {r['train_seconds']:.2f} s, L1 {r['l1_train']:.5f}/"
+            f"{r['l1_test']:.5f}, FID {r['fid_train']:.6g}/{r['fid_test']:.6g}; against one "
+            f"process {', '.join(f'{k} {x:.2e}' for k, x in rel.items())} relative (tol "
+            f"{BASELINE_DP_REL}); rank 0's launches {r['launches']}")
+    if worst > BASELINE_DP_REL:
+        raise AssertionError(f"measure_baseline_dp: {worst:.2e} from the one-process record")
+    return {"world": world, "seconds": ran["seconds"], "results": record["results"],
+            "launches": launches, "worst": worst}
 
 
 def phase_bench(device, timed: dict) -> dict:
@@ -2743,10 +2912,15 @@ def main() -> int:
         tools[name] = phase()
         tools[name]["phase_s"] = time.perf_counter() - t0
         log(name, f"phase {tools[name]['phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    shared = phase_shared_inception(device)
+    log("shared_inception", f"phase {time.perf_counter() - t0:.1f} s")
     root = regime_root()
     for name, phase in (
-        ("regime", lambda: phase_reference_regime(device, root)),
+        ("regime", lambda: phase_reference_regime(device, root, shared["path"])),
         ("measure_baseline", lambda: phase_measure_baseline(device, root)),
+        ("measure_baseline_dp", lambda: phase_measure_baseline_dp(
+            device, root, tools["measure_baseline"]["results"])),
         ("bench", lambda: phase_bench(device, bf16["pallas2"])),
     ):
         t0 = time.perf_counter()
@@ -2823,6 +2997,8 @@ def main() -> int:
         name = {"augment_packed": "K1", "augment_rgba": "K2"}.get(entry["name"], entry["name"])
         for key, n in (("regime_launches", tools["regime"]["launches"].get(name)),
                        ("measure_baseline_launches", tools["measure_baseline"]["launches"].get(name)),
+                       ("measure_baseline_dp_rank_launches",
+                        tools["measure_baseline_dp"]["launches"][0].get(name)),
                        ("bench_launches", tools["bench"]["launches"].get(name))):
             if n:
                 entry[key] = n
@@ -2905,6 +3081,12 @@ def main() -> int:
             f"{v} {tools['regime']['runs'][v]['host_ms_per_step']:.3f}" for v in REGIME_VARIANTS)
         + "; measure_baseline (1 epoch) s " + ", ".join(
             f"{r['variant']} {r['train_seconds']:.2f}" for r in tools["measure_baseline"]["results"])
+        + f"; measure_baseline under torchrun x {tools['measure_baseline_dp']['world']} s " + ", ".join(
+            f"{r['variant']} {r['train_seconds']:.2f}" for r in tools["measure_baseline_dp"]["results"])
+        + f" ({tools['measure_baseline_dp']['worst']:.2e} from one process)"
+        + f"; shared-init InceptionV3 command {shared['command_s']:.2f} s; regime FID (scipy) at "
+        + f"{list(REGIME_FID_AT)} " + ", ".join(
+            f"{v} {tools['regime']['runs'][v]['fid']}" for v in REGIME_VARIANTS if v != "indexed")
         + "; tool phases " + ", ".join(f"{k} {v['phase_s']:.1f} s" for k, v in tools.items())
         + f"; smoke {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))

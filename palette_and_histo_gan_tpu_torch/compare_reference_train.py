@@ -28,8 +28,10 @@ regime's float32), the plain "xla" on the CPU. Float32 runs with TF32 off
 `--fid-at` reports the FID curve (the reference's scipy formula and the
 port's low-rank distance) on the features of the shared-init InceptionV3
 that `--inception-npz` names, the file scripts/make_shared_inception.py
-writes; without one that exists it raises: a curve on random weights would
-not compare with the TF record's. The indexed regime has no FID curve.
+writes and `python -m palette_and_histo_gan_tpu_torch.convert_inception
+--shared-init OUT.npz` draws bit for bit without TensorFlow; without one
+that exists it raises: a curve on random weights would not compare with the
+TF record's. The indexed regime has no FID curve.
 
 It runs on `cuda` unless `--device cpu` is given, prints the card's line
 first and writes its record only under `build/`.

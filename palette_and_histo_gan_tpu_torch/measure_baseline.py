@@ -24,10 +24,17 @@ the peak device memory of the run and the kernels' launches in it (the
 dataset build's included). Float32 runs with TF32 off (the Trainer's
 `config.py::float32_exact`).
 
-One process on one card; the JAX script's mesh rule (data parallelism over
-every device when the batch divides) is not part of this tool. It runs on
-`cuda` unless `--device cpu` is given, prints the card's line first and
-writes its record only under `build/`; the Trainer's previews and
+Under `torchrun --nproc-per-node=N -m palette_and_histo_gan_tpu_torch.
+measure_baseline ...` each rank runs on its card (cuda:LOCAL_RANK) and the
+ranks train as one data-parallel group: the JAX script's mesh rule, here
+the Trainer's (`train/trainer.py::data_group`: a group when the world has
+more than one rank, which raises unless the global batch of 4 splits over
+it). The shared FidEvaluator shards its forwards over that group. Only
+rank 0 prints and writes the record, whose `world_size` is N; its
+`train_seconds`, `peak_device_memory_bytes` and `launches` are rank 0's.
+Run as one process, it trains on one device as before (`world_size` 1).
+It runs on `cuda` unless `--device cpu` is given, prints the card's line
+first and writes its record only under `build/`; the Trainer's previews and
 checkpoints go under `--temp-folder`.
 """
 
@@ -43,6 +50,7 @@ import time
 import torch
 
 from .config import config_for_variant, default_data_root
+from .parallel import distributed
 from .sweep import default_histogram_impl, launches_since, read_launches
 from .utils import profiling
 
@@ -121,30 +129,61 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
+def measure(variants, epochs: int, device, eval_fid: bool = True, data_root: str | None = None,
+            temp_folder: str = TEMP_FOLDER, out: str | None = None, fid_input_size: int = 299,
+            **config_kw) -> dict:
+    """The record of `variants` trained for `epochs` each on `device`, or on
+    this rank's device of the data-parallel group that the Trainer's rule
+    forms (`data_group`, on the first variant's config), with one
+    FidEvaluator shared by the variants (sharded over the group). The
+    writing process (the one process, or rank 0) prints, and writes the
+    record to `out` under build/ when given. `config_kw` may narrow the
+    networks; `fid_input_size` shrinks the Inception's input (tests)."""
     from .eval.fid import FidEvaluator
+    from .train.trainer import data_group
 
+    device = distributed.rank_device(device)
+    probe = config_for_variant(variants[0], epochs=epochs, **config_kw)
+    group = data_group(probe, device)
+    if group is not None:
+        device = group.device
+    writes = group is None or group.rank == 0
+    card = profiling.card_line() if device.type == "cuda" else f"{device}: no card"
+    if writes:
+        print(card, flush=True)
+    fid_evaluator = (FidEvaluator(input_size=fid_input_size, device=device, group=group)
+                     if eval_fid else None)
+    results = []
+    for variant in variants:
+        if writes:
+            print(f"=== {variant} ===", flush=True)
+        results.append(run_variant(variant, epochs, eval_fid, fid_evaluator, device, data_root,
+                                   temp_folder, **config_kw))
+        if writes:
+            print(json.dumps(results[-1], indent=2), flush=True)
+    record = {
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else str(device),
+        "card": card,
+        "epochs": epochs,
+        "world_size": 1 if group is None else group.world_size,
+        "results": results,
+    }
+    if writes and out is not None:
+        print(f"wrote {profiling.write_build_json(out, record)}", flush=True)
+    return record
+
+
+def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("measure_baseline: PyTorch sees no CUDA device "
                          "(--device cpu runs on the CPU)")
-    card = profiling.card_line() if device.type == "cuda" else f"{device}: no card"
-    print(card, flush=True)
-    fid_evaluator = None if args.no_fid else FidEvaluator(device=device)
-    results = []
-    for variant in args.variants:
-        print(f"=== {variant} ===", flush=True)
-        results.append(run_variant(variant, args.epochs, not args.no_fid, fid_evaluator, device,
-                                   args.data_root, args.temp_folder))
-        print(json.dumps(results[-1], indent=2), flush=True)
-    path = profiling.write_build_json(args.out, {
-        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else str(device),
-        "card": card,
-        "epochs": args.epochs,
-        "results": results,
-    })
-    print(f"wrote {path}", flush=True)
+    try:
+        measure(args.variants, args.epochs, device, not args.no_fid, args.data_root,
+                args.temp_folder, args.out)
+    finally:
+        distributed.shutdown()
     return 0
 
 

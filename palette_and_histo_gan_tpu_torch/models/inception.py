@@ -20,10 +20,14 @@ writes that layout from a live keras InceptionV3, and
 `convert_keras_weights` from a keras notop weights file (the command
 `python -m palette_and_histo_gan_tpu_torch.convert_inception`); only the
 latter needs TensorFlow, which it imports when called.
+`shared_init_flat_params` draws scripts/make_shared_inception.py's
+shared-init InceptionV3, the extractor of the repository's FID curves,
+without TensorFlow (the command's `--shared-init`).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import re
 from typing import Callable
@@ -208,6 +212,60 @@ def random_flat_params(module: InceptionV3, seed: int = RANDOM_INIT_SEED) -> dic
     return flat
 
 
+# scripts/make_shared_inception.py's shared-init InceptionV3, the feature
+# extractor of every FID curve in the repository's JAX and TF records: keras'
+# model.layers lists the Conv2Ds in topological order, not in creation
+# order, and the script draws their kernels in that order; the i-th draw
+# goes to units[SHARED_INIT_DRAW_ORDER[i]] (keras 3's InceptionV3 notop)
+SHARED_INIT_SEED = 47
+SHARED_INIT_DRAW_ORDER = (
+    0, 1, 2, 3, 4, 8, 6, 9, 5, 7, 10, 11, 15, 13, 16, 12, 14, 17, 18, 22, 20, 23, 19, 21,
+    24, 25, 27, 28, 26, 29, 34, 35, 31, 36, 32, 37, 30, 33, 38, 39, 44, 45, 41, 46, 42, 47,
+    40, 43, 48, 49, 54, 55, 51, 56, 52, 57, 50, 53, 58, 59, 64, 65, 61, 66, 62, 67, 60, 63,
+    68, 69, 72, 73, 70, 74, 71, 75, 80, 77, 81, 78, 79, 82, 83, 76, 84, 89, 86, 90, 87, 88,
+    91, 92, 85, 93,
+)
+# flat_digest of shared_init_flat_params(): what the TensorFlow script writes
+SHARED_INIT_SHA256 = "8d822a60e11f24a721c58e6649fc42c84236f7a832fcb88b8910b39f63fe54b3"
+
+
+def shared_init_flat_params(module: InceptionV3 | None = None) -> dict:
+    """The flat weight dict that scripts/make_shared_inception.py writes
+    through TensorFlow, bit for bit, from numpy alone: He-normal HWIO
+    kernels drawn as the script draws them, rng.normal(0, sqrt(2 / fan_in),
+    shape) in float64 cast to float32 from default_rng(47), in keras'
+    model.layers order (SHARED_INIT_DRAW_ORDER); BN at keras' defaults,
+    beta 0, mean 0, var 1; keyed in creation order as convert_keras_model
+    keys it."""
+    units = (module or InceptionV3()).units
+    rng = np.random.default_rng(SHARED_INIT_SEED)
+    kernels = {}
+    for k in SHARED_INIT_DRAW_ORDER:
+        out_c, in_c, kh, kw = units[k].weight.shape
+        fan_in = kh * kw * in_c
+        kernels[k] = rng.normal(0.0, np.sqrt(2.0 / fan_in), (kh, kw, in_c, out_c)).astype(
+            np.float32)
+    flat = {}
+    for k in range(NUM_CONVBN):
+        out_c = kernels[k].shape[-1]
+        prefix = f"params/ConvBN_{k}"
+        flat[f"{prefix}/Conv_0/kernel"] = kernels[k]
+        flat[f"{prefix}/beta"] = np.zeros(out_c, np.float32)
+        flat[f"{prefix}/mean"] = np.zeros(out_c, np.float32)
+        flat[f"{prefix}/var"] = np.ones(out_c, np.float32)
+    return flat
+
+
+def flat_digest(flat: dict) -> str:
+    """sha256 over a flat weight dict's keys in sorted order, each followed
+    by its array's bytes (C order)."""
+    digest = hashlib.sha256()
+    for key in sorted(flat):
+        digest.update(key.encode())
+        digest.update(np.ascontiguousarray(flat[key]).tobytes())
+    return digest.hexdigest()
+
+
 def load_params(input_size: int = 299, device: torch.device | str = "cuda",
                 weights: str | None = None) -> InceptionV3:
     """InceptionV3 in eval mode on `device`, for inputs of `input_size`
@@ -230,8 +288,10 @@ def load_params(input_size: int = 299, device: torch.device | str = "cuda",
         with np.load(path) as f:
             flat = {k: f[k] for k in f.files}
     else:
-        print(f"InceptionV3 for FID with random weights ({WEIGHTS_ENV} unset): the values "
-              "are not comparable to a pretrained FID")
+        if not (torch.distributed.is_initialized() and torch.distributed.get_rank()):
+            # one notice a world: the ranks above 0 of a process group print nothing
+            print(f"InceptionV3 for FID with random weights ({WEIGHTS_ENV} unset): the "
+                  "values are not comparable to a pretrained FID")
         flat = random_flat_params(model)
     model.load_state_dict(inception_state_dict_from_flat(flat, model))
     return model.to(device).eval()

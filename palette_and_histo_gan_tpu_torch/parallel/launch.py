@@ -24,7 +24,9 @@ from tensors the caller hands over:
   * "fid": FidEvaluator(group=) activations;
   * "fit": a Trainer with data_parallel="on" on seeded synthetic sprites,
     optionally restored from its checkpoint, fit with callbacks; the
-    history, the L1 report, the state and the kernels' launches.
+    history, the L1 report, the state and the kernels' launches;
+  * "measure_baseline": measure_baseline.measure in a working directory of
+    the rank's own; the record and the files the rank left there.
 """
 
 from __future__ import annotations
@@ -232,8 +234,32 @@ def scenario_fit(group, config: dict, steps: int, update_steps: int, data_seed: 
             "writes": trainer.writes}
 
 
+def scenario_measure_baseline(group, workdir: str, variants: list, epochs: int, data_root: str,
+                              config: dict | None = None, fid_input_size: int = 299) -> dict:
+    """measure_baseline.measure of `variants` from `data_root`, run in
+    `workdir` (which may name the rank as {rank}) with the networks
+    narrowed by `config`, the record to build/baseline_results.json there;
+    the record and the files the rank left under `workdir`."""
+    from .. import measure_baseline
+
+    workdir = workdir.format(rank=group.rank)
+    os.makedirs(workdir, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        record = measure_baseline.measure(
+            variants, epochs, group.device, data_root=data_root,
+            out=os.path.join("build", "baseline_results.json"), fid_input_size=fid_input_size,
+            **(config or {}))
+    finally:
+        os.chdir(cwd)
+    files = sorted(os.path.relpath(os.path.join(d, f), workdir)
+                   for d, _, names in os.walk(workdir) for f in names)
+    return {"record": record, "files": files}
+
+
 SCENARIOS = {"steps": scenario_steps, "generate": scenario_generate, "fid": scenario_fid,
-             "fit": scenario_fit}
+             "fit": scenario_fit, "measure_baseline": scenario_measure_baseline}
 
 
 # -------------------------------------------------------------------- a rank

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from .config import DIRECTION_FOLDERS, SEED, config_for_variant, default_data_root
+from .eval.fid import preprocess_input, scale_images_nn
 
 BATCH = 4
 FID_STEPS = (2520, 5040, 10080)  # a quarter, half and all of 160 epochs x 63 steps
@@ -135,20 +136,12 @@ def decode_indexed(idx_maps: np.ndarray, palettes: np.ndarray) -> np.ndarray:
 
 
 def fid_preprocess(images: np.ndarray) -> np.ndarray:
-    """The reference's FID preprocessing of [-1, 1] eval images: nearest
-    neighbour to (299, 299, 3), on the channel axis too (RGBA keeps
-    channels 0, 2, 3), index floor((o + 0.5) * in / out), then x / 127.5 - 1."""
-
-    def nn_idx(out_size, in_size):
-        o = np.arange(out_size, dtype=np.float64)
-        return np.clip(np.floor((o + 0.5) * (in_size / out_size)).astype(np.int64),
-                       0, in_size - 1)
-
-    n, h, w, c = images.shape
-    out = images[:, nn_idx(299, h)][:, :, nn_idx(299, w)]
-    if c != 3:
-        out = out[..., nn_idx(3, c)]
-    return out.astype(np.float32) / 127.5 - 1.0
+    """The reference's FID preprocessing of [-1, 1] eval images, on the
+    CPU: eval/fid.py's nearest-neighbour resize to (299, 299, 3) with the
+    reference's quirks (the channel axis too: RGBA keeps channels 0, 2, 3)
+    and its preprocess_input, x / 127.5 - 1, in float32."""
+    x = torch.from_numpy(np.array(images, np.float32))
+    return preprocess_input(scale_images_nn(x, 299, reference_quirks=True)).numpy()
 
 
 def reference_fid_from_acts(act1: np.ndarray, act2: np.ndarray) -> float:

@@ -10,9 +10,12 @@
   the CPU (the plain augmentation and the
   plain palette index, since the tensors lie on the CPU), convert a keras
   discriminator archive with its CPU forward, take K6's moments of a CPU
-  tensor (its plain version), and check that neither
+  tensor (its plain version), draw the shared-init InceptionV3 with
+  `convert_inception --shared-init` (its digest the pinned one), and check
+  that neither
   `jax` nor any module of `palette_and_histo_gan_tpu` was loaded, nor
-  TensorFlow (only the Inception conversion imports it, when it runs),
+  TensorFlow (only the keras Inception conversion, `--h5`, imports it,
+  when it runs),
   and that no CUDA kernel was launched.
 * An AST scan of the port's sources and of chip_smoke.py finds no import
   of the JAX package, of JAX or of the repository's tests.
@@ -73,6 +76,10 @@ PROGRAM = textwrap.dedent(
     import torch
     mean, mean2 = moments.moments(torch.ones(5, 3, 4, 4, dtype=torch.bfloat16))
     assert mean.shape == (5, 3) and bool((mean2 == 1).all()) and len(table.KERNELS) == 9
+    shared = sys.argv[1] + "/inception_shared.npz"
+    assert convert_inception.main(["--shared-init", shared]) == 0
+    with np.load(shared) as f:
+        assert inception.flat_digest({k: f[k] for k in f.files}) == inception.SHARED_INIT_SHA256
     loaded = sorted(
         m for m in sys.modules
         if m in ("jax", "palette_and_histo_gan_tpu", "tensorflow")
@@ -126,7 +133,8 @@ def test_port_sources_import_nothing_of_the_jax_package():
                    "models/convert.py", "bench_in_stats.py", "ops/moments.py", "kernels/table.py",
                    "sweep.py", "bench_infer.py", "profile_components.py", "roofline.py",
                    "utils/roofline.py", "ref_regime.py", "compare_reference_train.py",
-                   "measure_baseline.py", "bench.py"):
+                   "measure_baseline.py", "bench.py", "convert_inception.py",
+                   "models/inception.py", "parallel/launch.py"):
         assert os.path.join(REPO, "palette_and_histo_gan_tpu_torch", module) in sources, module
     bad = {
         os.path.relpath(path, REPO): sorted(

@@ -75,17 +75,19 @@ def test_evaluator_is_shared(monkeypatch, tmp_path):
     """main builds one FidEvaluator and hands it to every variant."""
     seen = []
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(fid, "FidEvaluator", lambda device: ("evaluator", device))
+    monkeypatch.setattr(fid, "FidEvaluator", lambda input_size, device, group: (
+        "evaluator", input_size, device, group))
     monkeypatch.setattr(measure_baseline, "run_variant",
                         lambda variant, epochs, eval_fid, evaluator, *a: seen.append(
                             (variant, epochs, eval_fid, evaluator)) or {"variant": variant})
     assert measure_baseline.main(["--epochs", "2", "--device", "cpu",
                                   "--variants", "baseline", "indexed"]) == 0
-    evaluator = ("evaluator", torch.device("cpu"))
+    evaluator = ("evaluator", 299, torch.device("cpu"), None)
     assert seen == [("baseline", 2, True, evaluator), ("indexed", 2, True, evaluator)]
     written = json.loads((tmp_path / "build" / "baseline_results.json").read_text())
     assert written["epochs"] == 2 and [r["variant"] for r in written["results"]] == [
         "baseline", "indexed"]
+    assert written["world_size"] == 1
 
 
 def test_without_a_card_the_command_exits_with_a_message():

@@ -26,7 +26,13 @@ process and against the JAX package:
   * a 2-rank Trainer fit(4, update_steps=2) with evaluate_l1 equals the
     one-process fit, only rank 0 wrote, and a 2-rank run resumed from a
     2-step run's checkpoint equals the uninterrupted one bit for bit;
-  * the refusals and the knobs: a batch of 3 over 2 ranks raises;
+  * measure_baseline under 2 ranks (baseline-no-aug and histogram, one
+    epoch of 13 narrow steps, FID at input 75): L1s and FIDs within the
+    parameters' rtol 2e-3 (no atol) of one process's record, the same
+    on both ranks, `world_size` 2; rank 0 wrote the record, the previews
+    and the checkpoints, and rank 1 left nothing in its working directory;
+  * the refusals and the knobs: a batch of 3 over 2 ranks raises (in the
+    Trainer and in measure_baseline);
     data_parallel="on" without a process group forms a world of one,
     which trains as one device does; check_supported takes every mode;
     the CLI's --data-parallel.
@@ -49,7 +55,7 @@ from threadpoolctl import threadpool_limits
 
 from palette_and_histo_gan_tpu.parallel import dp as jdp
 from palette_and_histo_gan_tpu.parallel import mesh as jmesh
-from palette_and_histo_gan_tpu_torch import check_supported, cli
+from palette_and_histo_gan_tpu_torch import check_supported, cli, measure_baseline, ref_regime
 from palette_and_histo_gan_tpu_torch import config as tconfig
 from palette_and_histo_gan_tpu_torch.data import loader
 from palette_and_histo_gan_tpu_torch.eval.fid import FidEvaluator
@@ -85,6 +91,14 @@ GENERATE_SIZES = (6, 8, 44)
 GENERATE_ATOL = 1e-5
 FID = dict(input_size=75, reference_quirks=False)  # FidEvaluator's batch_size 11
 FIT = dict(NARROW, model="baseline", batch_size=BATCH, dataset_sizes=(20,))
+# measure_baseline on the first 60 pairs of a synthetic root (51 train, 9
+# test: 13 steps an epoch), as tests/test_torch_measure_baseline.py runs it
+BASELINE = dict(variants=["baseline-no-aug", "histogram"], epochs=1, fid_input_size=75)
+BASELINE_NARROW = dict(NARROW, dataset_sizes=(60,))
+BASELINE_VALUES = ("l1_train", "l1_test", "fid_train", "fid_test")
+# PARAM_TOL's rtol alone: the FIDs of random Inception features at input 75
+# are ~5e-4, under its atol (2 ranks vs 1 process: ~2e-4 relative at most)
+BASELINE_TOL = dict(rtol=PARAM_TOL["rtol"], atol=0)
 
 
 def make_config(kwargs: dict) -> tconfig.Config:
@@ -177,6 +191,12 @@ def world(one_thread, tmp_path_factory):
     add("fit/resumed", "fit", config=shared, steps=2, update_steps=2, resume=True)
     add("refusal/batch-3", "fit", config=dict(FIT, batch_size=3, temp_folder=str(root / "r")),
         steps=1, update_steps=1)
+    baseline = dict(BASELINE, data_root=ref_regime.write_synthetic_root(str(root / "dataset")))
+    add("measure_baseline", "measure_baseline", workdir=str(root / "baseline" / "rank{rank}"),
+        config=BASELINE_NARROW, **baseline)
+    add("refusal/measure_baseline-batch-3", "measure_baseline",
+        workdir=str(root / "baseline-3" / "rank{rank}"),
+        config=dict(BASELINE_NARROW, batch_size=3), **baseline)
 
     pool = concurrent.futures.ThreadPoolExecutor(1)
     future = pool.submit(launch, WORLD, scenarios, "cpu", None, 600.0)
@@ -370,13 +390,45 @@ def test_two_rank_resume_equals_uninterrupted(world):
     assert resumed[0]["history"] == resumed[1]["history"] == whole["history"][2:]
 
 
+def test_two_rank_measure_baseline_equals_one_process_and_only_rank_0_writes(world, tmp_path,
+                                                                          monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    _, _, root = world
+    want = measure_baseline.measure(
+        BASELINE["variants"], BASELINE["epochs"], "cpu", data_root=str(root / "dataset"),
+        temp_folder=str(tmp_path / "temp"), fid_input_size=BASELINE["fid_input_size"],
+        **BASELINE_NARROW)
+    assert want["world_size"] == 1
+    ranks = result(world, "measure_baseline")
+    for r in ranks:
+        got = r["record"]
+        assert got["world_size"] == WORLD and got["epochs"] == 1
+        assert [e["variant"] for e in got["results"]] == BASELINE["variants"]
+        for ours, ref in zip(got["results"], want["results"]):
+            for key in ("variant", "architecture", "steps", "batch_size", "histogram_impl",
+                        "fid_weights", "launches"):
+                assert ours[key] == ref[key], key
+            assert ours["steps"] == 13 and ours["batch_size"] == BATCH
+            for key in BASELINE_VALUES:
+                assert math.isfinite(ours[key]), key
+                np.testing.assert_allclose(ours[key], ref[key], err_msg=key, **BASELINE_TOL)
+    # the ranks report one set of values
+    assert [[e[k] for k in BASELINE_VALUES] for e in ranks[0]["record"]["results"]] == [
+        [e[k] for k in BASELINE_VALUES] for e in ranks[1]["record"]["results"]]
+    rank0, rank1 = (r["files"] for r in ranks)
+    assert os.path.join("build", "baseline_results.json") in rank0
+    assert any(f.endswith(".png") for f in rank0) and any(f.endswith(".pt") for f in rank0)
+    assert rank1 == []
+
+
 # ------------------------------------------------ refusals and knobs
 
 
-def test_batch_that_does_not_split_over_the_ranks_raises(world):
+@pytest.mark.parametrize("scenario", ["refusal/batch-3", "refusal/measure_baseline-batch-3"])
+def test_batch_that_does_not_split_over_the_ranks_raises(world, scenario):
     future, index, _ = world
     for rank_results in future.result():
-        error = rank_results[index["refusal/batch-3"]].get("error", "")
+        error = rank_results[index[scenario]].get("error", "")
         assert error.startswith("ValueError") and "does not split over 2" in error
 
 
