@@ -181,7 +181,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      bench.py at b1024 bfloat16, 60 steps, its line printed; its img/s
      within 5% of the histogram "pallas2" b1024 bfloat16 timed chunk's
      device clock (the same program). Each phase's seconds printed. Then
-     the host cost of the step's named ranges (range_cost_us).
+     the host cost of the step's spans (range_cost_us).
  11. FID (phase_fid), under deterministic cuDNN from here on: InceptionV3
      at input 299 (random numpy-drawn weights unless PHG_INCEPTION_WEIGHTS
      names converted ones); 22 images' activations
@@ -2373,13 +2373,14 @@ def phase_roofline(device) -> dict:
 
 
 def range_cost_us(n: int = 10000) -> dict:
-    """Host microseconds of one enter and exit of a step's named range
-    (train/steps.py::named_range) outside a profile, and of a
-    record_function range (what it opens inside one), and the ranges one
-    b4 float32 histogram "pallas2" step enters (counted by wrapping
-    named_range over one step)."""
+    """Host microseconds of one enter and exit of a span
+    (utils/tracing.py::span) off (no profiler, not enabled), on (enabled: a
+    record and two CUDA events) and inside a profile without the record (a
+    record_function range), and the spans one b4 float32
+    histogram "pallas2" step enters (counted by wrapping tracing.span over
+    a one-step chunk)."""
     from palette_and_histo_gan_tpu_torch.sweep import prepare
-    from palette_and_histo_gan_tpu_torch.train import steps as steps_mod
+    from palette_and_histo_gan_tpu_torch.utils import tracing
 
     def per_call(enter) -> float:
         t0 = time.perf_counter()
@@ -2388,24 +2389,31 @@ def range_cost_us(n: int = 10000) -> dict:
                 pass
         return 1e6 * (time.perf_counter() - t0) / n
 
-    out = {"named_range_us": per_call(steps_mod.named_range),
-           "record_function_us": per_call(torch.profiler.record_function)}
     setup = prepare("histogram", 4, "float32", torch.device("cuda", 0), histogram_impl="pallas2")
     setup.run(1)
+    out = {"span_off_us": per_call(tracing.span),
+           "record_function_us": per_call(torch.profiler.record_function)}
+    tracing.enable()
+    try:
+        out["span_on_us"] = per_call(tracing.span)
+    finally:
+        tracing.enable(False)
+        tracing.clear()
     count = [0]
-    real = steps_mod.named_range
+    real = tracing.span
 
-    def counted(name):
+    def counted(name, **attrs):
         count[0] += 1
-        return real(name)
+        return real(name, **attrs)
 
-    steps_mod.named_range = counted
+    tracing.span = counted
     try:
         setup.run(1)
     finally:
-        steps_mod.named_range = real
-    out["ranges_a_step"] = count[0]
-    out["us_a_step"] = out["named_range_us"] * count[0]
+        tracing.span = real
+    out["spans_a_step"] = count[0]
+    out["us_a_step"] = out["span_off_us"] * count[0]
+    out["on_us_a_step"] = out["span_on_us"] * count[0]
     out["profiled_us_a_step"] = out["record_function_us"] * count[0]
     return out
 
@@ -2928,9 +2936,11 @@ def main() -> int:
         tools[name]["phase_s"] = time.perf_counter() - t0
         log(name, f"phase {tools[name]['phase_s']:.1f} s")
     ranges = range_cost_us()
-    log("ranges", f"{ranges['ranges_a_step']} named ranges a b4 f32 histogram step: "
-        f"{ranges['named_range_us']:.2f} us a range outside a profile, {ranges['us_a_step']:.1f} "
-        f"us a step (host); {ranges['record_function_us']:.2f} us a range inside one, "
+    log("spans", f"{ranges['spans_a_step']} spans a b4 f32 histogram step: "
+        f"{ranges['span_off_us']:.3f} us a span off, {ranges['us_a_step']:.1f} us a step (host); "
+        f"{ranges['span_on_us']:.2f} us on (record, events), {ranges['on_us_a_step']:.1f} "
+        f"us a step; "
+        f"{ranges['record_function_us']:.2f} us a range in a profile, "
         f"{ranges['profiled_us_a_step']:.1f} us a step")
     fid_out, fid_evaluator = phase_fid(device, card)
     life, trained, bf16_trainer = phase_lifecycle(device, card, fid_evaluator)
@@ -3062,9 +3072,9 @@ def main() -> int:
         + f"{torchrun['seconds']:.1f} s"
         + f"; run_experiment {experiment_s:.1f} s"
         + f"; float32_exact {scope_us:.2f} us a scope (host)"
-        + f"; named ranges {ranges['us_a_step']:.2f} us a b4 f32 step (host, "
-        + f"{ranges['ranges_a_step']} x {ranges['named_range_us']:.3f}; profiled "
-        + f"{ranges['profiled_us_a_step']:.1f})"
+        + f"; spans {ranges['us_a_step']:.2f} us a b4 f32 step off (host, "
+        + f"{ranges['spans_a_step']} x {ranges['span_off_us']:.3f}; on "
+        + f"{ranges['on_us_a_step']:.1f}; profiled {ranges['profiled_us_a_step']:.1f})"
         + "; sweep (device ms/step, b1024 bf16) " + ", ".join(
             f"{r['variant']} {1e3 * r['step_seconds']:.3f}" for r in tools["sweep"]["rows"]
             if r["batch"] == 1024)

@@ -123,6 +123,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="data parallelism over torch.distributed ranks (torchrun); "
         "--batch-size is the global batch",
     )
+    p.add_argument(
+        "--trace", action="store_true",
+        help="record the step's spans (utils/tracing.py) and print a Step breakdown "
+        "at the end of training",
+    )
     return p
 
 
@@ -178,6 +183,7 @@ def main(argv=None) -> int:
     from .data import loader
     from .parallel import distributed
     from .train.trainer import Trainer
+    from .utils import tracing
 
     device = distributed.rank_device(args.device)
     datasets = None
@@ -192,9 +198,11 @@ def main(argv=None) -> int:
                 *loader.synthetic_arrays(config, args.seed), device
             )
     joined = torch.distributed.is_initialized()
+    tracing.enable(args.trace)
     try:
         return train(args, config, Trainer(config, device, datasets=datasets))
     finally:
+        tracing.enable(False)
         if not joined:  # leave a process group the trainer formed
             distributed.shutdown()
 

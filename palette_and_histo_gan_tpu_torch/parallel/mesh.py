@@ -19,6 +19,9 @@ on CUDA tensors, so that ranks may share a card over Gloo. A gather is an
 all_reduce (sum) of a zeroed full-size buffer into which each rank writes
 its rows, which is exact. The JAX mesh's size-1 "model" axis has no
 counterpart: nothing shards a parameter.
+
+`collectives` counts the calls and bytes of each collective this process
+ran, always (`reset_collectives` zeroes them).
 """
 
 from __future__ import annotations
@@ -29,6 +32,20 @@ import torch
 import torch.distributed as dist
 
 from .distributed import initialize
+
+# calls and bytes of each collective this process ran; callers that count
+# a run zero them first (reset_collectives)
+collectives = {"all_reduce": {"calls": 0, "bytes": 0}, "broadcast": {"calls": 0, "bytes": 0}}
+
+
+def reset_collectives() -> None:
+    for counts in collectives.values():
+        counts.update(calls=0, bytes=0)
+
+
+def _count(kind: str, tensor: torch.Tensor) -> None:
+    collectives[kind]["calls"] += 1
+    collectives[kind]["bytes"] += tensor.nbytes
 
 
 def _flat(tensors) -> torch.Tensor:
@@ -62,6 +79,7 @@ class DataGroup:
     def all_reduce_(self, tensor: torch.Tensor) -> torch.Tensor:
         """Sum `tensor` over the ranks, in place."""
         dist.all_reduce(tensor)
+        _count("all_reduce", tensor)
         return tensor
 
     def broadcast_(self, tensors) -> None:
@@ -72,6 +90,7 @@ class DataGroup:
             return
         flat = _flat(tensors).to(self.device)
         dist.broadcast(flat, 0)
+        _count("broadcast", flat)
         _unflatten_into(flat, tensors)
 
     def all_reduce_mean_(self, tensors) -> None:

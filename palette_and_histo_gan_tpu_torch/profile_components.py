@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from .config import config_for_variant, float32_exact
-from .utils import profiling
+from .utils import profiling, tracing
 
 CALLS = 10
 SEED = 0
@@ -152,6 +152,7 @@ def device_times(calls: dict) -> dict:
                     fn()
                 torch.cuda.synchronize()
             launches[name] = {k: v / CALLS for k, v in launches_since(before).items()}
+    tracing.clear()  # the spans the profile recorded: its rows hold what is read
     raw = list(prof.profiler.kineto_results.events())
     cpu = torch.autograd.DeviceType.CPU
     spans = {k.name()[len("component:"):]: (k.start_ns(), k.end_ns()) for k in raw

@@ -25,7 +25,7 @@ import time
 import torch
 
 from .config import MODEL_VARIANTS, config_for_variant
-from .utils import profiling
+from .utils import profiling, tracing
 
 
 def main(argv=None) -> int:
@@ -74,6 +74,7 @@ def main(argv=None) -> int:
         trainer.train_chunk(trainer.state, dataset, args.steps)
         torch.cuda.synchronize()
         window_us = 1e6 * (time.perf_counter() - t0)
+    tracing.clear()  # the spans the profile recorded: its rows hold what is read
     kernels = [
         (e.key, profiling.device_us(e) / args.steps / 1e3, e.count // args.steps)
         for e in profiling.device_events(prof)

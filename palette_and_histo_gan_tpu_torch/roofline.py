@@ -69,10 +69,12 @@ import sys
 import torch
 
 from .config import MODEL_VARIANTS
-from .utils import flops, profiling
+from .utils import flops, profiling, tracing
 from .utils.roofline import PEAK, augment_bound, histogram_bound
 
 RANGES = ("batch-gather", "augment", "G-fwd", "D-fwd", "hist-fwd", "loss", "optimizer")
+# the step's other spans (train/steps.py), ranges too while a profiler records
+SPAN_RANGES = RANGES + ("G-bwd", "D-bwd", "allreduce")
 LAYOUT = "copy/layout"
 UNATTRIBUTED = "unattributed"
 NO_FLOOR_GROUPS = (LAYOUT, UNATTRIBUTED)
@@ -317,7 +319,7 @@ def attribute_cpu(prof) -> dict:
     return {
         e: (LAYOUT if attribution.is_layout_op(e) else attribution.group_of_op(e))
         for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CPU and e.name not in RANGES
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name not in SPAN_RANGES
         and e.self_cpu_time_total > 0
     }
 
@@ -406,6 +408,7 @@ def run(variant: str, batch: int, dtype: str, steps: int, device, **config_kw) -
     with torch.profiler.profile(activities=activities, record_shapes=True) as prof:
         setup.run(steps)
         torch.cuda.synchronize(device)
+    tracing.clear()  # the spans the profile recorded: its ranges hold what is read
     launches = launches_since(before)
     bf16 = {k: n - bf16_before[k] for k, n in histogram_kernel.bf16_launches.items()}
     measured, moved, total, unattributed = attribute_device(prof, steps)
@@ -474,6 +477,7 @@ def _main_cpu(args) -> int:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
                                 record_shapes=True) as prof:
         setup.run(args.steps)
+    tracing.clear()
     by_group = collections.Counter()
     for event, group in attribute_cpu(prof).items():
         by_group[group] += event.self_cpu_time_total / 1e3 / args.steps

@@ -23,24 +23,24 @@ network) before the two Adam updates; the chunk gathers this rank's rows
 of the global batch and averages the stacked metrics over the ranks once
 a chunk.
 
-Named ranges (`named_range`, `torch.profiler.record_function` while a
-profiler records) mark the step's parts with the JAX roofline's group
-names: "batch-gather" (the chunk's draw and gather, and the batch's
-unpack and normalize where there is no augmentation), "augment", "G-fwd",
-"D-fwd", "hist-fwd", "loss" and "optimizer". They change no operation of
-the step. roofline.py attributes the device time of each kernel to its
-range, and a backward kernel to the range of the forward operation whose
-autograd node ran it.
+Spans (utils/tracing.py) mark each step and the step's parts, the
+forward ones with the JAX roofline's group names: "batch-gather" (the
+chunk's draw and gather, and the batch's unpack and normalize where there
+is no augmentation), "augment", "G-fwd", "D-fwd", "hist-fwd", "loss",
+"optimizer"; and "G-bwd" (with the mark "G-out" where the gradient of G's
+output is ready), "D-bwd", "allreduce". Each part is also a
+`torch.profiler.record_function` range while a profiler records; the step
+is not. They change no operation of the step. roofline.py attributes the
+device time of each kernel to its forward range, and a backward kernel to
+the range of the forward operation whose autograd node ran it.
 """
 
 from __future__ import annotations
 
-import contextlib
 from functools import partial
 from typing import Callable
 
 import torch
-from torch.profiler import record_function
 
 from ..config import Config, compute_dtype
 from ..data.loader import batch_indices
@@ -50,6 +50,7 @@ from ..ops.histogram_pallas import calculate_rgbuv_histogram_pallas
 from ..ops.histogram_pallas2 import calculate_rgbuv_histogram_pallas2
 from ..models.networks import DropoutDraw
 from ..ops.image import normalize
+from ..utils import tracing
 from .losses import (
     bce_with_logits,
     discriminator_loss,
@@ -58,14 +59,6 @@ from .losses import (
     sparse_categorical_crossentropy_logits,
 )
 from .state import TrainState
-
-
-def named_range(name: str):
-    """A named range of a profile while a profiler records, nothing
-    otherwise: a range costs ~10 us of host time, the check ~0.3 us."""
-    if torch._C._autograd._profiler_enabled():
-        return record_function(name)
-    return contextlib.nullcontext()
 
 
 def pack_rows(arr: torch.Tensor) -> torch.Tensor:
@@ -110,13 +103,13 @@ def _prepare_batch(config: Config, state: TrainState, source, target, group=None
         # normalize folded into the augmentation's write; in bfloat16 mode
         # it writes bfloat16, as every consumer casts to it anyway
         rows, first = _global_rows(group, source.shape[0])
-        with named_range("augment"):
+        with tracing.span("augment"):
             return augment_ops.augment_batch_sharded(
                 source, target, state.aug_generator, config.augment_probability,
                 global_batch=rows, first_row=first,
                 normalize_out=True, out_dtype=compute_dtype(config),
             )
-    with named_range("batch-gather"):
+    with tracing.span("batch-gather"):
         if source.dtype == torch.int32:
             source, target = unpack_rows(source), unpack_rows(target)
         return normalize(source.float()), normalize(target.float())
@@ -141,11 +134,19 @@ def histogram_fn(config: Config) -> Callable:
 
 def _average_gradients(group, *modules) -> None:
     """Each module's gradients averaged over the ranks, one flat all_reduce
-    a module."""
+    a module, in the span "allreduce" whose attribute "bytes" is what they
+    exchanged (parallel/mesh.py::collectives)."""
     if group is None:
         return
-    for module in modules:
-        group.all_reduce_mean_([p.grad for p in module.parameters() if p.grad is not None])
+    from ..parallel.mesh import collectives  # parallel imports this module
+
+    counted = collectives["all_reduce"]
+    with tracing.span("allreduce") as record:
+        before = counted["bytes"]
+        for module in modules:
+            group.all_reduce_mean_([p.grad for p in module.parameters() if p.grad is not None])
+        if record is not None:
+            record.attrs["bytes"] = counted["bytes"] - before
 
 
 def rgba_train_step(config: Config, state: TrainState, source, target, group=None) -> dict:
@@ -158,11 +159,11 @@ def rgba_train_step(config: Config, state: TrainState, source, target, group=Non
     gen, disc = state.generator, state.discriminator
     dtype = compute_dtype(config)
 
-    with named_range("G-fwd"):
+    with tracing.span("G-fwd"):
         fake = gen(source, dropout, deterministic=config.deterministic_dropout)
-    with named_range("D-fwd"):
+    with tracing.span("D-fwd"):
         fake_pred = disc(fake, source)
-    with named_range("loss"):
+    with tracing.span("loss"):
         g_metrics = generator_loss(fake_pred, fake, target, config.effective_lambda_l1)
     if config.model == "histogram":
         # two separate histogram calls, real and fake, as the JAX step runs them
@@ -171,31 +172,34 @@ def rgba_train_step(config: Config, state: TrainState, source, target, group=Non
             sigma=config.histogram_sigma, dtype=dtype,
         )
         hist_fn = histogram_fn(config)
-        with named_range("hist-fwd"):
+        with tracing.span("hist-fwd"):
             real_hist = hist_fn(target, **kw)
-        with named_range("hist-fwd"):
+        with tracing.span("hist-fwd"):
             fake_hist = hist_fn(fake, **kw)
-        with named_range("loss"):
+        with tracing.span("loss"):
             h_loss = hist_ops.hellinger_loss(real_hist, fake_hist, group)
             g_metrics["histogram_loss"] = h_loss
             g_metrics["total_loss"] = g_metrics["total_loss"] + config.lambda_histogram * h_loss
 
     gen.zero_grad(set_to_none=True)
     disc.zero_grad(set_to_none=True)
-    g_metrics["total_loss"].backward(inputs=list(gen.parameters()))
+    with tracing.span("G-bwd") as record:
+        tracing.mark_grad(record, fake, "G-out")
+        g_metrics["total_loss"].backward(inputs=list(gen.parameters()))
 
     fake = fake.detach()
     # two separate D passes, as the reference runs them (pix2pix_model.py:69-70)
-    with named_range("D-fwd"):
+    with tracing.span("D-fwd"):
         real_pred = disc(target, source)
-    with named_range("D-fwd"):
+    with tracing.span("D-fwd"):
         fake_pred = disc(fake, source)
-    with named_range("loss"):
+    with tracing.span("loss"):
         d_metrics = discriminator_loss(real_pred, fake_pred)
-    d_metrics["total_loss"].backward(inputs=list(disc.parameters()))
+    with tracing.span("D-bwd"):
+        d_metrics["total_loss"].backward(inputs=list(disc.parameters()))
 
     _average_gradients(group, gen, disc)
-    with named_range("optimizer"):
+    with tracing.span("optimizer"):
         state.g_optimizer.step()
         state.d_optimizer.step()
     state.step += 1
@@ -217,20 +221,20 @@ def indexed_train_step(config: Config, state: TrainState, source_idx, target_idx
     is one pass over the stacked [real; fake] and [source; source] batch,
     as the JAX step runs it (:377-383)."""
     gen, disc = state.generator, state.discriminator
-    with named_range("batch-gather"):
+    with tracing.span("batch-gather"):
         source = source_idx.float()
         real = target_idx.float()
         labels = target_idx[..., 0]
 
-    with named_range("G-fwd"):
+    with tracing.span("G-fwd"):
         logits = gen(
             source, _dropout(config, state, group, source.shape[0]),
             deterministic=config.deterministic_dropout, logits=True,
         )
         fake = torch.argmax(logits, dim=-1, keepdim=True).float()
-    with torch.no_grad(), named_range("D-fwd"):
+    with torch.no_grad(), tracing.span("D-fwd"):
         fake_pred = disc(fake, source)
-    with named_range("loss"):
+    with tracing.span("loss"):
         adversarial = bce_with_logits(torch.ones_like(fake_pred), fake_pred)
         l1 = onehot_l1_logits(labels, logits)
         seg = sparse_categorical_crossentropy_logits(labels, logits)
@@ -244,19 +248,23 @@ def indexed_train_step(config: Config, state: TrainState, source_idx, target_idx
 
     gen.zero_grad(set_to_none=True)
     disc.zero_grad(set_to_none=True)
-    total.backward(inputs=list(gen.parameters()))
+    with tracing.span("G-bwd") as record:
+        # the part before the mark is the losses' backward over the logits
+        tracing.mark_grad(record, logits, "G-out")
+        total.backward(inputs=list(gen.parameters()))
     del logits  # (B, 64, 64, 256): 2 GiB at b1024 bf16 that D's step does not need
 
-    with named_range("D-fwd"):
+    with tracing.span("D-fwd"):
         real_pred, fake_pred = disc(
             torch.cat([real, fake], dim=0), torch.cat([source, source], dim=0)
         ).chunk(2, dim=0)
-    with named_range("loss"):
+    with tracing.span("loss"):
         d_metrics = discriminator_loss(real_pred, fake_pred)
-    d_metrics["total_loss"].backward(inputs=list(disc.parameters()))
+    with tracing.span("D-bwd"):
+        d_metrics["total_loss"].backward(inputs=list(disc.parameters()))
 
     _average_gradients(group, gen, disc)
-    with named_range("optimizer"):
+    with tracing.span("optimizer"):
         state.g_optimizer.step()
         state.d_optimizer.step()
     state.step += 1
@@ -317,13 +325,14 @@ def make_train_chunk(config: Config, dataset_size: int, data_seed: int,
             sources, targets = pack_rows(sources), pack_rows(targets)
         history = []
         for _ in range(num_steps):
-            with named_range("batch-gather"):
-                idx = batch_indices(
-                    data_seed, state.step, dataset_size, config.batch_size, sources.device
-                )[rows]
-                source, target = sources[idx], targets[idx]
-            history.append(step_fn(config, state, source, target, group))
-        with named_range("loss"):
+            with tracing.span("step", ranged=False):
+                with tracing.span("batch-gather"):
+                    idx = batch_indices(
+                        data_seed, state.step, dataset_size, config.batch_size, sources.device
+                    )[rows]
+                    source, target = sources[idx], targets[idx]
+                history.append(step_fn(config, state, source, target, group))
+        with tracing.span("loss"):
             return _mean_over_ranks(history, group)
 
     return train_chunk

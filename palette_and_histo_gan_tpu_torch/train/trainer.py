@@ -12,7 +12,13 @@ at its first report); after every chunk it writes the per-step
 scalars at the reference's quantized step (utils/logging.py), prints the
 ETA, and every `update_steps * 5` steps and at the end it checkpoints
 through train/checkpoint.py::AsyncSaver, whose copies and writes ride
-behind the next chunks. `phase_seconds` accumulates wall time per phase.
+behind the next chunks. `phase_seconds` accumulates wall time per phase;
+each phase is also a span of utils/tracing.py. While tracing is on, the
+records are folded into `step_spans` and `phase_spans` after each chunk's
+fetch and at the end, and dropped, and fit ends with a "Step breakdown"
+line: device and host milliseconds a step of each span of the step, then
+device and host milliseconds in all of each phase (the checkpoint's hold
+among them).
 
 Previews, patch maps and image dumps run the generator with dropout on,
 as the reference does, from generators of their own: one per call seeded
@@ -64,6 +70,7 @@ from ..parallel import distributed
 from ..parallel.dp import make_dp_generate_fn, make_dp_train_chunk
 from ..parallel.mesh import DataGroup, make_group, replicate_state
 from ..utils import logging as log_utils
+from ..utils import tracing
 from ..utils import visualization as viz
 from ..utils.io import delete_folder, ensure_folder_structure, seconds_to_human_readable
 from . import checkpoint as ckpt
@@ -106,6 +113,10 @@ def data_group(config: Config, device: torch.device) -> DataGroup | None:
             f"{group.world_size} data-parallel ranks"
         )
     return group
+
+
+def _per(total: float | None, steps: int) -> str:
+    return "-" if total is None else f"{total / steps:.3f}"
 
 
 class _NullWriter:
@@ -233,6 +244,10 @@ class Trainer:
         self.writer = None
         self.now_string = None
         self.phase_seconds: dict[str, float] = {}
+        # utils/tracing.py::step_totals and ::phase_totals of the spans
+        # recorded in steps and of the phases
+        self.step_spans: dict[str, dict] = {}
+        self.phase_spans: dict[str, dict] = {}
         # per-step host metrics of every fit, in step order
         self.history: list[dict[str, float]] = []
 
@@ -240,7 +255,8 @@ class Trainer:
     def _phase(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with tracing.span(name, ranged=False):
+                yield
         finally:
             self.phase_seconds[name] = (
                 self.phase_seconds.get(name, 0.0) + time.perf_counter() - t0
@@ -311,6 +327,8 @@ class Trainer:
                 # one device-to-host copy a chunk; it waits for the chunk's work
                 names = list(metrics)
                 host = torch.stack([metrics[k] for k in names]).float().cpu().tolist()
+            # the fetch waited for the chunk's work, so its events are complete
+            self._fold_spans()
             done += chunk
             current_step = self.state.step
 
@@ -333,6 +351,9 @@ class Trainer:
 
         with self._phase("checkpoint"):
             self._flush_checkpoints()
+        if tracing.records() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()  # the last phases' events
+        self._fold_spans()
 
         total = sum(self.phase_seconds.values())
         if total > 0:
@@ -341,6 +362,24 @@ class Trainer:
                 for k, v in sorted(self.phase_seconds.items(), key=lambda kv: -kv[1])
             )
             self.say(f"Phase breakdown: {breakdown}")
+        steps_seen = self.step_spans.get("step", {}).get("count", 0)
+        if steps_seen:
+            self.say("Step breakdown (ms a step, device / host): " + "  ".join(
+                f"{k} {_per(t['device_ms'], steps_seen)} / {t['host_ms'] / steps_seen:.3f}"
+                for k, t in self.step_spans.items()
+            ) + "; phases (ms in all, device / host): " + "  ".join(
+                f"{k} {_per(t['device_ms'], 1)} / {t['host_ms']:.3f}"
+                for k, t in self.phase_spans.items()
+            ))
+
+    def _fold_spans(self) -> None:
+        """The recorded spans folded into step_spans and phase_spans, and
+        dropped; their events are complete (the caller synchronized)."""
+        spans = tracing.records()
+        if spans:
+            tracing.step_totals(spans, self.step_spans)
+            tracing.phase_totals(spans, self.phase_spans)
+            tracing.clear()
 
     # ----------------------------------------------------------------------
     def _update_visualization(self, examples, step, update_steps, callbacks):

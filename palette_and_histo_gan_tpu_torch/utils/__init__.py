@@ -1,2 +1,3 @@
 """Host-side helpers: the metrics writer and time formatting, the previews,
-the analytic FLOP count (`flops`) and the profiling clocks (`profiling`)."""
+the analytic FLOP count (`flops`), the profiling clocks (`profiling`) and
+the span recorder (`tracing`)."""

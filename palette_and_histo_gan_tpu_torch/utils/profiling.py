@@ -1,15 +1,12 @@
 """Profiling and numerics-debugging helpers.
 
-  - `trace`: a torch.profiler trace of a scope, written as a Chrome trace
-    (chrome://tracing, Perfetto, TensorBoard's profiler plugin);
   - `device_step_seconds`: a step's device time, the summed durations of
-    the kernels, copies and memsets the CUDA device ran, from the same
-    profiler (`device_events` gives them one by one; `profile_step.py`
-    prints them);
+    the kernels, copies and memsets the CUDA device ran, from
+    torch.profiler (`device_events` gives them one by one;
+    `profile_step.py` prints them);
   - `marginal_step_seconds` / `marginal_call_seconds`: best-of-N marginal
     host clocks, (t_long - t_short) / (n_long - n_short), which cancel a
     fixed dispatch and fetch cost;
-  - `StepTimer`: blocked host timing of steps;
   - `debug_nans`: anomaly detection over a scope;
   - `card_line`: the card's name and power limit, as nvidia-smi gives
     them, which every measurement prints beside its numbers;
@@ -27,26 +24,7 @@ import time
 
 import torch
 
-
-def _profiler_activities() -> list:
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    return activities
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Profile the scope on the host and, where there is one, the CUDA
-    device; on exit write it as `log_dir/trace_<pid>_<ms>.json` (Chrome
-    trace format). Yields the profiler."""
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=_profiler_activities()) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    path = os.path.join(log_dir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json")
-    prof.export_chrome_trace(path)
+from . import tracing
 
 
 @contextlib.contextmanager
@@ -114,6 +92,7 @@ def device_step_seconds(timed_fn, steps: int) -> float:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         timed_fn(steps)
         torch.cuda.synchronize()
+    tracing.clear()  # the spans the profile recorded: its rows hold what is read
     total = device_seconds(prof)
     if total <= 0:
         raise RuntimeError("device_step_seconds: the profile holds no device time")
@@ -184,38 +163,6 @@ def marginal_call_seconds(fn, args=(), n_long: int = 16, n_short: int = 4,
         if 0 < m < best:
             best = m
     return best
-
-
-class StepTimer:
-    """Blocked host-clock timing of steps: `stop(block_on)` fetches one
-    element of `block_on` (a small output of the step, e.g. a loss) before
-    it reads the clock, so the step's device work is inside the time."""
-
-    def __init__(self):
-        self.times: list[float] = []
-        self._t0: float | None = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self, block_on=None):
-        if block_on is not None:
-            _force(block_on)
-        self.times.append(time.perf_counter() - self._t0)
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / max(len(self.times), 1)
-
-    def summary(self, batch_size: int) -> dict:
-        if not self.times:
-            return {}
-        mean = self.mean
-        return {
-            "mean_step_seconds": mean,
-            "steps_per_second": 1.0 / mean,
-            "images_per_second": batch_size / mean,
-        }
 
 
 def card_line() -> str:

@@ -1,5 +1,6 @@
 """The step roofline (`palette_and_histo_gan_tpu_torch/roofline.py`) and the
-step's named ranges (`train/steps.py`), at narrow widths on the CPU:
+step's spans (`train/steps.py`, `utils/tracing.py`), at narrow widths on
+the CPU:
 
 * a narrow step profiled with its ranges: every op with time lands in a
   group of the roofline's (unattributed under 5% of the time), and every
@@ -32,7 +33,7 @@ from palette_and_histo_gan_tpu.config import config_for_variant as jax_config_fo
 from palette_and_histo_gan_tpu_torch import roofline
 from palette_and_histo_gan_tpu_torch.config import config_for_variant
 from palette_and_histo_gan_tpu_torch.sweep import prepare
-from palette_and_histo_gan_tpu_torch.train import steps as steps_mod
+from palette_and_histo_gan_tpu_torch.utils import tracing
 from palette_and_histo_gan_tpu_torch.utils.roofline import bound
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
@@ -132,7 +133,7 @@ def test_ranges_add_no_op_to_the_step(variant, monkeypatch):
     recorded = {}
     for profiling, ranges in ((True, True), (False, True), (True, False)):
         if not ranges:
-            monkeypatch.setattr(steps_mod, "record_function",
+            monkeypatch.setattr(tracing, "record_function",
                                 lambda name: contextlib.nullcontext())
         setup = prepare(variant, 2, "float32", "cpu", **NARROW)
         scope = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])

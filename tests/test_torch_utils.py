@@ -4,20 +4,14 @@ JAX package's.
 * `utils/flops.py::train_step_flops_per_image` equals the JAX function
   exactly for the four variants at full and narrow widths and at another
   histogram size;
-* `utils/profiling.py`: the marginal clocks and `StepTimer` on fake clocks
-  (tests/test_profiling.py's linear and all-negative timers; the StepTimer
-  summary equal to the JAX StepTimer's on the same clock); `debug_nans`
+* `utils/profiling.py`: the marginal clocks on fake clocks
+  (tests/test_profiling.py's linear and all-negative timers); `debug_nans`
   raises on the NaN gradient of a finite forward and only inside its
-  scope; `trace` writes a Chrome trace on the CPU; `device_step_seconds`
-  raises without a CUDA device;
+  scope; `device_step_seconds` raises without a CUDA device;
 * `ops/image.py::replace_alpha_with_white` and
   `ops/palette.py::rgba_to_single_int` equal the JAX functions on seeded
   inputs (uint8 and float32, red >= 128 wrapping negative).
 """
-
-import glob
-import json
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +21,6 @@ import torch
 from palette_and_histo_gan_tpu.ops import image as jimage
 from palette_and_histo_gan_tpu.ops import palette as jpalette
 from palette_and_histo_gan_tpu.utils import flops as jflops
-from palette_and_histo_gan_tpu.utils import profiling as jprofiling
 from palette_and_histo_gan_tpu_torch.ops import image as timage
 from palette_and_histo_gan_tpu_torch.ops import palette as tpalette
 from palette_and_histo_gan_tpu_torch.utils import flops, profiling
@@ -100,24 +93,6 @@ def test_marginal_call_seconds_fetches_and_cancels_the_fixed_cost(monkeypatch):
     assert len(fetched) == 1 + 2 * 3  # warm-up, then three (short, long) pairs
 
 
-def test_step_timer_matches_the_jax_timer(monkeypatch):
-    clock = FakeClock()
-    monkeypatch.setattr(profiling.time, "perf_counter", clock)
-    monkeypatch.setattr(jprofiling.time, "perf_counter", clock)
-    ours, theirs = profiling.StepTimer(), jprofiling.StepTimer()
-    assert ours.summary(4) == theirs.summary(4) == {}
-    for dt in (0.25, 0.75):
-        ours.start()
-        theirs.start()
-        clock.now += dt
-        ours.stop({"loss": torch.tensor([1.0, 2.0])})
-        theirs.stop({"loss": jnp.asarray([1.0, 2.0])})
-    assert ours.times == theirs.times == [0.25, 0.75]
-    assert ours.summary(4) == theirs.summary(4)
-    assert ours.summary(4) == {"mean_step_seconds": 0.5, "steps_per_second": 2.0,
-                               "images_per_second": 8.0}
-
-
 def _nan_gradient_of_a_finite_forward():
     x = torch.tensor([-1.0, 4.0], requires_grad=True)
     y = torch.where(x > 0, torch.sqrt(x), torch.zeros_like(x)).sum()
@@ -137,15 +112,6 @@ def test_debug_nans_raises_on_a_nan_gradient():
     assert not torch.is_anomaly_enabled()
 
 
-def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
-    a = torch.randn(64, 64)
-    with profiling.trace(str(tmp_path / "trace")):
-        (a @ a).sum().item()
-    paths = glob.glob(str(tmp_path / "trace" / "trace_*.json"))
-    assert len(paths) == 1
-    with open(paths[0]) as f:
-        events = json.load(f)["traceEvents"]
-    assert any("mm" in e.get("name", "") for e in events)
 
 
 def test_device_step_seconds_raises_without_a_cuda_device():
