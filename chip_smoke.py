@@ -9,9 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      versions; exits 1 without a CUDA device.
   2. build: compiles the fused augmentation kernel (csrc/augment.cu), the
      fused histogram kernels (csrc/histogram.cu), the palette index
-     kernel (csrc/palette.cu) and the InstanceNorm moments kernel
-     (csrc/moments.cu) with nvcc for sm_90a from this checkout, the four
-     nvcc processes at once; prints ptxas' registers and spills of
+     kernel (csrc/palette.cu), the InstanceNorm moments kernel
+     (csrc/moments.cu) and the indexed losses' pair (csrc/indexed_loss.cu)
+     with nvcc for sm_90a from this checkout, the five nvcc processes at
+     once; prints ptxas' registers and spills of
      the tensor-core kernels (the histogram forwards in float32, 3xTF32,
      and bfloat16, the bfloat16 backward) and of the float32 backward, and
      counts the HGMMA (wgmma) instructions of the first three in the
@@ -78,6 +79,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      NCHW shape; the networks' statistics and K6 at b1024 bfloat16 at each
      InstanceNorm input of the generator, in the layout the card's
      networks hold it.
+  7b. indexed losses (phase_indexed_loss): the kernel pair CCE-fwd /
+     CCE-bwd (csrc/indexed_loss.cu, which replaces no TPU kernel) against
+     its plain version at B = 1024 and 4, float32 and bfloat16 logits in
+     the generator's view of NCHW memory (its head's output on the card),
+     labels past 255 and negative, rows
+     past each clip bound, under the step's upstream gradients and a
+     nonzero L1 one: each loss within CCE_TOL of its plain value, the
+     gradient within CCE_TOL of the largest plain entry; two launches of
+     each bit-equal; a row whose lse - z_t sits on each clip bound (the
+     bound moved onto it) passes its gradient, a float32 step outside cuts
+     it; launches equal to calls; the full-width generator's float32 and
+     bfloat16 logits taken as they are, channels-last logits refused.
+     Times both kernels against their bytes bound and the plain forward +
+     backward at each shape.
   8. indexed parity: two full-width float32 indexed steps on the card
      against the same steps on the CPU, from the same weights on the same
      index maps, deterministic dropout; the generator's argmax maps agree
@@ -248,7 +263,12 @@ MOMENTS_ENTRY_ROW, its launches those of the A/B, gives the A/B's forms A
 and B at that row (ab_ms), every A/B row (ab_rows) and the generator's
 InstanceNorm inputs at b1024 with form A's and K6's times
 (instance_norm_step), and its device time beside its plain version's at the
-A/B's smallest NCHW row (small_device_ms).
+A/B's smallest NCHW row (small_device_ms). CCE, the indexed losses' pair,
+replaces no TPU kernel (`replaces` null): its ms are CCE-fwd + CCE-bwd at
+the float32 b1024 step's logits (NCHW memory), beside their bytes bound and the plain
+forward + backward, with every checked shape's times (times); its launches
+are the indexed main path's (one of each a step), the phase's checks under
+check_launches.
 """
 
 from __future__ import annotations
@@ -917,6 +937,211 @@ def phase_in_stats(device) -> dict:
             "ab_ms": {"A": row["A_event_ms"], "B": row["B_event_ms"]}}
 
 
+# the indexed losses' kernel pair against its plain version: each loss
+# relative to its plain value, the gradient as a fraction of the plain
+# gradient's largest |entry|. float32: the same float32 arithmetic a row
+# (lse, z_t, the clip, p_t), the means summed in double (plain: float32 in
+# PyTorch's order), the gradient as k (p_j - d_jt) (plain: two autograd
+# terms added). bfloat16 logits: against the plain version on their float32
+# upcast (the same values; the plain bfloat16 gradient rounds each autograd
+# term to bfloat16 and adds them there); the kernel rounds its gradient once,
+# within half a bfloat16 ulp of each entry, checked at 2^-8 of the largest
+CCE_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2.0**-8)}
+CCE_BATCHES = (1024, 4)
+# (g_seg, g_l1): the step's upstream gradients (lambda_segmentation 0.01,
+# lambda_l1 0) and a nonzero L1 gradient, which the step never sends
+CCE_GRADS = ((0.01, 0.0), (0.5, -1.75))
+
+
+def cce_inputs(b: int, dtype, device, seed: int):
+    """Labels and logits of a b1024-like batch: the logits (B, 64, 64, 256),
+    the generator's view of NCHW memory (the card's head output), N(0, 3) with one row in 61 whose label's logit
+    sits 40 above the rest (p_t past 1 - 1e-7: the clip's lower bound binds)
+    and one in 67 whose sits 40 below (past its upper bound); one label in
+    97 past 255 and one in 101 negative."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    logits = torch.randn((b, 256, 64, 64), generator=gen, device=device) * 3.0
+    logits = logits.to(dtype).permute(0, 2, 3, 1)
+    labels = torch.randint(0, 256, (b, 64, 64), generator=gen, device=device, dtype=torch.int32)
+    flat = labels.view(-1)
+    n = flat.numel()
+    image, pixel = (lambda r: r // 4096, lambda r: r % 4096)
+    for step, shift in ((61, 40.0), (67, -40.0)):
+        r = torch.arange(0, n, step, device=device)
+        rows = logits[image(r), pixel(r) // 64, pixel(r) % 64]
+        logits[image(r), pixel(r) // 64, pixel(r) % 64, flat[r].long()] = (
+            rows.float().max(-1).values + shift).to(dtype)
+    flat[torch.arange(0, n, 97, device=device)] = 256 + (n % 97)
+    flat[torch.arange(50, n, 101, device=device)] = -1
+    return labels, logits
+
+
+def cce_plain(labels, logits, g_seg, g_l1):
+    """The plain version's (seg, l1) and the gradient of g_seg seg + g_l1 l1."""
+    from palette_and_histo_gan_tpu_torch.ops import indexed_loss as il
+
+    x = logits.detach().requires_grad_(True)
+    seg, l1 = il.indexed_losses_plain(labels, x)
+    (grad,) = torch.autograd.grad(g_seg * seg + g_l1 * l1, x)
+    return seg.detach(), l1.detach(), grad
+
+
+def phase_indexed_loss(device) -> dict:
+    """The indexed losses' kernel pair (CCE-fwd, CCE-bwd) against its plain
+    version at B = 1024 and 4, float32 and bfloat16, in the generator's view
+    of NCHW memory, under the step's upstream gradients and a nonzero L1 one
+    (CCE_TOL); two launches of each bit-equal; a row at each clip bound
+    passing its gradient and one a float32 step outside cut; launches equal
+    to calls; the full-width generator's logits on the card taken as they
+    are, channels-last logits refused. Times both kernels and the plain
+    forward and backward at each shape."""
+    from palette_and_histo_gan_tpu_torch import config_for_variant
+    from palette_and_histo_gan_tpu_torch.kernels import build
+    from palette_and_histo_gan_tpu_torch.ops import indexed_loss as il
+    from palette_and_histo_gan_tpu_torch.train import create_train_state
+
+    for line in build.build_reports.get("phg_indexed_loss", "").splitlines():
+        if "Compiling entry function" in line or "registers" in line or "spill" in line:
+            log("indexed_loss", "ptxas: " + line.strip())
+    il.reset_launches()
+    fwd_calls = bwd_calls = 0
+    worst, times = {}, {}
+    for b in CCE_BATCHES:
+        for dtype in (torch.float32, torch.bfloat16):
+            labels, logits = cce_inputs(b, dtype, device, SEED + b)
+            what = f"B={b} {str(dtype)[6:]}"
+            seg, l1, stats = il.forward_cuda(labels, logits)
+            seg2, l12, stats2 = il.forward_cuda(labels, logits)
+            fwd_calls += 2
+            if not (torch.equal(seg, seg2) and torch.equal(l1, l12) and torch.equal(stats, stats2)):
+                raise AssertionError(f"CCE-fwd {what}: two launches differ")
+            value_tol, grad_tol = CCE_TOL[dtype]
+            upcast = logits.float()
+            for g_seg, g_l1 in CCE_GRADS:
+                gs = torch.tensor(g_seg, device=device)
+                gl = torch.tensor(g_l1, device=device)
+                grad = il.backward_cuda(labels, logits, stats, gs, gl)
+                again = il.backward_cuda(labels, logits, stats, gs, gl)
+                bwd_calls += 2
+                if not torch.equal(grad, again):
+                    raise AssertionError(f"CCE-bwd {what}: two launches differ")
+                if grad.dtype != dtype or grad.stride() != logits.stride():
+                    raise AssertionError(f"CCE-bwd {what}: gradient {grad.dtype} {grad.stride()}")
+                pseg, pl1, pgrad = cce_plain(labels, upcast, g_seg, g_l1)
+                errs = {"seg": abs(float(seg) - float(pseg)) / abs(float(pseg)),
+                        "l1": abs(float(l1) - float(pl1)) / abs(float(pl1)),
+                        "grad": float((grad.float() - pgrad).abs().max()) / float(pgrad.abs().max())}
+                del pgrad, grad, again
+                log("indexed_loss", f"{what} g=({g_seg}, {g_l1}): seg {float(seg):.7f} (plain "
+                    f"{float(pseg):.7f}), l1 {float(l1):.7f} (plain {float(pl1):.7f}); relative "
+                    "errors " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+                if not (errs["seg"] <= value_tol and errs["l1"] <= value_tol
+                        and errs["grad"] <= grad_tol):
+                    raise AssertionError(f"CCE {what} g=({g_seg}, {g_l1}): {errs} against "
+                                         f"{value_tol} / {grad_tol}")
+                for k, v in errs.items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+            del upcast
+            if b == CCE_BATCHES[0] and dtype == torch.float32:
+                bwd_calls += cce_bound_rows(labels, logits, stats)
+            times.update(cce_times(labels, logits, what))
+            del labels, logits, stats, stats2
+            torch.cuda.empty_cache()
+    if il.launches != {"CCE-fwd": fwd_calls, "CCE-bwd": bwd_calls}:
+        raise AssertionError(f"launches {il.launches} for {fwd_calls} / {bwd_calls} calls")
+    log("indexed_loss", f"kernels == plain within {CCE_TOL[torch.float32]} (float32) and "
+        f"{CCE_TOL[torch.bfloat16]} (bfloat16) of (each loss, the largest gradient entry); "
+        f"worst {worst}; relaunches bit-equal; launches == calls ({il.launches})")
+
+    # the full-width generator's logits on the card, as the step hands them over
+    for dtype in ("float32", "bfloat16"):
+        config = config_for_variant("indexed", compute_dtype=dtype)
+        state = create_train_state(config, device, SEED)
+        with torch.no_grad():
+            source = torch.randint(0, 256, (4, 64, 64, 1), device=device).float()
+            logits = state.generator(source, deterministic=True, logits=True)
+        labels = source[..., 0].int()
+        shape = il.check(labels, logits)
+        log("indexed_loss", f"the {dtype} generator's logits {tuple(logits.shape)} strides "
+            f"{logits.stride()}: the kernels take them as (images, pixels, image stride, class "
+            f"stride) {shape}")
+        channels_last = logits.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        try:
+            il.forward_cuda(labels, channels_last)
+        except ValueError as refusal:
+            log("indexed_loss", f"channels-last logits (strides {channels_last.stride()}) refused: "
+                f"{refusal}")
+        else:
+            raise AssertionError(f"channels-last logits {channels_last.stride()} were taken")
+        del state, logits, channels_last
+    torch.cuda.empty_cache()
+    return {"worst": worst, "times": times, "launches": dict(il.launches)}
+
+
+def cce_bound_rows(labels, logits, stats) -> int:
+    """A row whose lse - z_t, as the kernel computes it, sits on the lower,
+    then the upper clip bound (the bound moved onto it) passes its gradient;
+    a float32 step outside cuts it. Returns the backward launches made."""
+    from palette_and_histo_gan_tpu_torch.ops import indexed_loss as il
+    from palette_and_histo_gan_tpu_torch.train import losses
+
+    row, calls = 3, 0
+    d = (stats[row, 0] - stats[row, 1]).cpu().numpy()
+    one, zero = torch.tensor(1.0, device=logits.device), torch.tensor(0.0, device=logits.device)
+    saved = losses.NEG_LOG_MIN, losses.NEG_LOG_MAX
+    try:
+        for name, away in (("NEG_LOG_MIN", np.inf), ("NEG_LOG_MAX", -np.inf)):
+            found = []
+            for at in (d, np.nextafter(d, np.float32(away))):
+                setattr(losses, name, float(at))
+                grad = il.backward_cuda(labels, logits, stats, one, zero)
+                calls += 1
+                found.append(float(grad[0, 0, row].abs().max()))
+                del grad
+            if not (found[0] > 0.0 and found[1] == 0.0):
+                raise AssertionError(f"{name} moved onto row {row}'s lse - z_t = "
+                                     f"{float(d)!r}: its gradient's largest |entry| {found[0]} at "
+                                     f"the bound, {found[1]} a step outside")
+            log("indexed_loss", f"{name} at row {row}'s lse - z_t ({float(d)!r}): "
+                f"gradient passed ({found[0]:.3e}); a float32 step outside: cut")
+            losses.NEG_LOG_MIN, losses.NEG_LOG_MAX = saved
+    finally:
+        losses.NEG_LOG_MIN, losses.NEG_LOG_MAX = saved
+    return calls
+
+
+def cce_times(labels, logits, what: str) -> dict:
+    """Device ms (CUDA events) of CCE-fwd, CCE-bwd and the plain version's
+    forward + backward under the step's upstream gradients, each beside the
+    kernels' bytes bound: the logits read once forward, read once and their
+    gradient written once backward, the int32 labels read once a pass (the
+    benchmark's indexed_loss_roofline counts the same bytes)."""
+    from palette_and_histo_gan_tpu_torch.ops import indexed_loss as il
+
+    counted = dict(il.launches)
+    g_seg, g_l1 = (torch.tensor(g, device=logits.device) for g in CCE_GRADS[0])
+    _, _, stats = il.forward_cuda(labels, logits)
+    iters = 20 if labels.shape[0] >= 1024 else 200
+    fwd = cuda_ms(lambda: il.forward_cuda(labels, logits), iters)
+    bwd = cuda_ms(lambda: il.backward_cuda(labels, logits, stats, g_seg, g_l1), iters)
+    plain = cuda_ms(lambda: cce_plain(labels, logits, *CCE_GRADS[0]), max(iters // 4, 5))
+    fwd2 = cuda_ms(lambda: il.forward_cuda(labels, logits), iters)
+    bwd2 = cuda_ms(lambda: il.backward_cuda(labels, logits, stats, g_seg, g_l1), iters)
+    rows, item = labels.numel(), logits.element_size()
+    fwd_bound = bound(rows * 256 * item + rows * 4, (rows * 256, "float32"))
+    bwd_bound = bound(2 * rows * 256 * item + rows * 4, (2 * rows * 256, "float32"))
+    pair = (fwd + fwd2 + bwd + bwd2) / 2
+    log("indexed_loss", f"time {what}: CCE-fwd {fwd:.4f} / {fwd2:.4f} ms (bound {fwd_bound[0]:.4f}, "
+        f"{fwd_bound[1]}), CCE-bwd {bwd:.4f} / {bwd2:.4f} ms (bound {bwd_bound[0]:.4f}, "
+        f"{bwd_bound[1]}); pair {pair:.4f} ms, {100 * (fwd_bound[0] + bwd_bound[0]) / pair:.1f}% of "
+        f"its bound; plain forward + backward {plain:.4f} ms")
+    # the launches of the timing (and of cuda_ms's warm-ups) are not the checks'
+    il.launches.update(counted)
+    return {what: {"fwd_ms": (fwd + fwd2) / 2, "bwd_ms": (bwd + bwd2) / 2, "plain_ms": plain,
+                   "fwd_bound_ms": fwd_bound[0], "bwd_bound_ms": bwd_bound[0]}}
+
+
 def phase_indexed_parity(device) -> float:
     """Two full-width float32 indexed steps on `device` against the same two
     on the CPU, from the same weights, on few-colour index maps; returns the
@@ -961,16 +1186,17 @@ def phase_indexed_parity(device) -> float:
 
 
 def phase_indexed_main_path(device, steps=8, update_steps=4) -> dict:
-    """The indexed dataset build on the card (K5) and the Trainer's fit;
-    returns the launch counts of that run."""
+    """The indexed dataset build on the card (K5) and the Trainer's fit, one
+    CCE-fwd and one CCE-bwd a step; returns the launch counts of that run."""
     from palette_and_histo_gan_tpu_torch import config_for_variant
     from palette_and_histo_gan_tpu_torch.data import loader
-    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, histogram_kernel, palette_kernel
+    from palette_and_histo_gan_tpu_torch.ops import (augment_kernel, histogram_kernel, indexed_loss,
+                                                     palette_kernel)
     from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
 
     config = config_for_variant("indexed", batch_size=4, temp_folder=TEMP_FOLDER)
     arrays = loader.synthetic_indexed_arrays(config, SEED)
-    for counter in (augment_kernel, histogram_kernel, palette_kernel):
+    for counter in (augment_kernel, histogram_kernel, palette_kernel, indexed_loss):
         counter.reset_launches()
     datasets = loader.indexed_datasets_from_arrays(
         *arrays, device, config.palette_ordering, config.seed
@@ -981,7 +1207,7 @@ def phase_indexed_main_path(device, steps=8, update_steps=4) -> dict:
     trainer.fit(steps=steps, update_steps=update_steps, callbacks=["evaluate_l1"])
     if device.type == "cuda":
         torch.cuda.synchronize()
-    launches = dict(palette_kernel.launches)
+    launches = {**palette_kernel.launches, **indexed_loss.launches}
 
     for i, row in enumerate(trainer.history):
         check_finite(row, f"indexed step {i}")
@@ -1003,6 +1229,10 @@ def phase_indexed_main_path(device, steps=8, update_steps=4) -> dict:
     log("main", f"kernel launches in this run: {launches}")
     if device.type == "cuda" and launches["K5"] < 4:
         raise AssertionError(f"the indexed main path launched K5 {launches['K5']} times; needed 4")
+    cce = {key: launches[key] for key in indexed_loss.launches}
+    if device.type == "cuda" and cce != {"CCE-fwd": steps, "CCE-bwd": steps}:
+        raise AssertionError(f"the indexed main path launched {cce} in {steps} steps; needed one "
+                             "of each a step")
     return launches
 
 
@@ -2739,20 +2969,21 @@ def phase_bench(device, timed: dict) -> dict:
 
 
 LIBRARIES = (("phg_augment", "augment.cu"), ("phg_histogram", "histogram.cu"),
-             ("phg_palette", "palette.cu"), ("phg_moments", "moments.cu"))
+             ("phg_palette", "palette.cu"), ("phg_moments", "moments.cu"),
+             ("phg_indexed_loss", "indexed_loss.cu"))
 
 
 def build_kernels() -> None:
-    """The four libraries, with their nvcc processes at once."""
+    """The five libraries, with their nvcc processes at once."""
     from concurrent.futures import ThreadPoolExecutor
 
     from palette_and_histo_gan_tpu_torch.kernels import build
-    from palette_and_histo_gan_tpu_torch.ops import (augment_kernel, histogram_kernel, moments,
-                                                     palette_kernel)
+    from palette_and_histo_gan_tpu_torch.ops import (augment_kernel, histogram_kernel, indexed_loss,
+                                                     moments, palette_kernel)
 
     t0 = time.perf_counter()
     loaders = (augment_kernel.library, histogram_kernel.library, palette_kernel.library,
-               moments.library)
+               moments.library, indexed_loss.library)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for job in [pool.submit(f) for f in loaders]:
             job.result()
@@ -2890,6 +3121,7 @@ def main() -> int:
 
     pal = phase_palette_check(device)
     in_stats = phase_in_stats(device)
+    cce = phase_indexed_loss(device)
     worst = phase_indexed_parity(device)
     log("parity", f"indexed: worst relative loss difference {worst:.2e} (tol {PARITY_RTOL})")
     launches.update(phase_indexed_main_path(device))
@@ -3029,6 +3261,18 @@ def main() -> int:
     k6["instance_norm_step"] = in_stats["step"]
     k6["small_device_ms"] = in_stats["small_device_ms"]
     kernels.append(k6)
+    # the indexed losses' kernel pair, which replaces no TPU kernel: both
+    # kernels at the float32 b1024 step's shape, their launches the indexed
+    # main path's, the phase's checks beside them, every shape's times
+    pair = cce["times"]["B=1024 float32"]
+    kernels.append({
+        "name": "CCE", "route": "cuda", "source": "palette_and_histo_gan_tpu_torch/csrc/indexed_loss.cu",
+        "replaces": None, "launches": {key: launches[key] for key in cce["launches"]},
+        "check_launches": cce["launches"], "max_abs_err": cce["worst"],
+        "ms": pair["fwd_ms"] + pair["bwd_ms"], "plain_ms": pair["plain_ms"],
+        "bound_ms": pair["fwd_bound_ms"] + pair["bwd_bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "times": cce["times"],
+    })
     log("summary", f"{card}: b4 kernel/plain ms "
         + ", ".join(f"{e} {kern['times'][(e, 4)][0]:.4f}/{kern['times'][(e, 4)][1]:.4f}" for e in ("packed", "rgba"))
         + ", " + ", ".join(f"{n} {hist['times'][(n, 4)][0]:.4f}/{hist['times'][(n, 4)][1]:.4f}" for n in HIST_KERNELS)
@@ -3039,6 +3283,8 @@ def main() -> int:
         + f"; K6 {MOMENTS_ENTRY_ROW[0]} {MOMENTS_ENTRY_ROW[1]} {k6['ms']:.4f} ms, "
         + f"{100 * k6['bound_ms'] / k6['ms']:.1f}% of its bytes bound {k6['bound_ms']:.4f} ms (A "
         + f"{k6['ab_ms']['A']:.4f}, B {k6['ab_ms']['B']:.4f} ms)"
+        + f"; CCE b1024 f32 {kernels[-1]['ms']:.4f} ms, {100 * kernels[-1]['bound_ms'] / kernels[-1]['ms']:.1f}% "
+        + f"of its bytes bound {kernels[-1]['bound_ms']:.4f} ms (plain {kernels[-1]['plain_ms']:.4f} ms)"
         + f"; steps (host ms / device ms / img/s / MFU): histogram f32 b4 {timed_row(f32)} "
         + f"(pallas2 {timed_row(f32_pallas2)}); bf16 b1024 "
         + ", ".join(f"{label} {timed_row(r)} {r['peak_gib']:.2f} GiB" for label, r in bf16.items())

@@ -13,6 +13,10 @@ tf.one_hot gives such a label an all-zero row, so it contributes 0 to the
 cross-entropy and sum(p) to the L1, and the means still run over all
 B * H * W positions. (`F.cross_entropy(ignore_index=...)` would average over
 the valid positions only, and it rejects labels of 256 and more.)
+
+The indexed train step takes both logits forms at once through
+`ops/indexed_loss.py::indexed_losses`: a CUDA kernel pair on a card, and on
+the CPU these two functions as they are (its plain version).
 """
 
 from __future__ import annotations

@@ -48,16 +48,11 @@ from ..ops import augment as augment_ops
 from ..ops import histogram as hist_ops
 from ..ops.histogram_pallas import calculate_rgbuv_histogram_pallas
 from ..ops.histogram_pallas2 import calculate_rgbuv_histogram_pallas2
+from ..ops.indexed_loss import indexed_losses
 from ..models.networks import DropoutDraw
 from ..ops.image import normalize
 from ..utils import tracing
-from .losses import (
-    bce_with_logits,
-    discriminator_loss,
-    generator_loss,
-    onehot_l1_logits,
-    sparse_categorical_crossentropy_logits,
-)
+from .losses import bce_with_logits, discriminator_loss, generator_loss
 from .state import TrainState
 
 
@@ -236,8 +231,7 @@ def indexed_train_step(config: Config, state: TrainState, source_idx, target_idx
         fake_pred = disc(fake, source)
     with tracing.span("loss"):
         adversarial = bce_with_logits(torch.ones_like(fake_pred), fake_pred)
-        l1 = onehot_l1_logits(labels, logits)
-        seg = sparse_categorical_crossentropy_logits(labels, logits)
+        seg, l1 = indexed_losses(labels, logits)
         total = adversarial + config.effective_lambda_l1 * l1 + config.lambda_segmentation * seg
     g_metrics = {
         "total_loss": total,

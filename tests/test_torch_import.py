@@ -2,10 +2,11 @@
 
 * In a fresh interpreter: import the port (with its FID, export,
   serving, experiment, weight-conversion, Inception-conversion, FLOP-count,
-  profiling, InstanceNorm-moments (K6), A/B and kernel-table modules, and the
-  measurement tools: the sweep, the serving benchmark, the components, the
-  roofline and the card's peaks, the comparison regime, the training-quality
-  comparison, the measured baseline and the benchmark), train one step of a
+  profiling, InstanceNorm-moments (K6), indexed-loss, A/B and kernel-table
+  modules, and the measurement tools: the sweep, the serving benchmark, the
+  components, the roofline and the card's peaks, the comparison regime, the
+  training-quality comparison, the measured baseline and the benchmark),
+  train one step of a
   narrow histogram-variant Trainer and one of a narrow indexed Trainer on
   the CPU (the plain augmentation and the
   plain palette index, since the tensors lie on the CPU), convert a keras
@@ -47,7 +48,7 @@ PROGRAM = textwrap.dedent(
     from palette_and_histo_gan_tpu_torch.eval import fid
     from palette_and_histo_gan_tpu_torch.models import export, inception
     from palette_and_histo_gan_tpu_torch.kernels import table
-    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, moments, palette_kernel
+    from palette_and_histo_gan_tpu_torch.ops import augment_kernel, indexed_loss, moments, palette_kernel
     from palette_and_histo_gan_tpu_torch.train.trainer import Trainer
     from palette_and_histo_gan_tpu_torch.utils import flops, profiling
     from palette_and_histo_gan_tpu_torch.utils import roofline as peaks
@@ -87,7 +88,8 @@ PROGRAM = textwrap.dedent(
     )
     print(json.dumps({
         "loaded": loaded,
-        "launches": {**augment_kernel.launches, **palette_kernel.launches, **moments.launches},
+        "launches": {**augment_kernel.launches, **palette_kernel.launches, **moments.launches,
+                     **indexed_loss.launches},
         "steps": {k: v[0] for k, v in histories.items()},
         "finite": all(math.isfinite(x) for _, h in histories.values() for x in h.values()),
         "metrics": {k: sorted(v[1]) for k, v in histories.items()},
@@ -105,7 +107,7 @@ def test_port_trains_on_cpu_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
-    assert out["launches"] == {"packed": 0, "rgba": 0, "K5": 0, "K6": 0}
+    assert out["launches"] == {"packed": 0, "rgba": 0, "K5": 0, "K6": 0, "CCE-fwd": 0, "CCE-bwd": 0}
     assert out["steps"] == {"histogram": 1, "indexed": 1} and out["finite"]
     assert "generator/histogram_loss" in out["metrics"]["histogram"]
     assert "generator/segmentation_loss" in out["metrics"]["indexed"]
@@ -131,6 +133,7 @@ def test_port_sources_import_nothing_of_the_jax_package():
     assert len(sources) > 20
     for module in ("convert_weights.py", "utils/flops.py", "utils/profiling.py",
                    "models/convert.py", "bench_in_stats.py", "ops/moments.py", "kernels/table.py",
+                   "ops/indexed_loss.py",
                    "sweep.py", "bench_infer.py", "profile_components.py", "roofline.py",
                    "utils/roofline.py", "ref_regime.py", "compare_reference_train.py",
                    "measure_baseline.py", "bench.py", "convert_inception.py",
