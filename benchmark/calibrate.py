@@ -97,7 +97,7 @@ def main() -> int:
     if args.plant_fault:
         from benchmark import faults
 
-        faults.plant(args.plant_fault)
+        faults.plant(args.plant_fault, cell.model)
     lines = core.with_ranks(args, cell, device,
                             lambda group: readings(args, cell, device, group),
                             os.path.abspath(__file__))

@@ -4,8 +4,9 @@ copy of palette_and_histo_gan_tpu_torch/roofline.py's attribution.
   * a forward kernel takes the innermost named range of the op that
     launched it (the op around the runtime call with the kernel's
     correlation id, else the op its linked correlation id names); the
-    ranges are the ones train/steps.py::named_range opens while a profiler
-    records (RANGES);
+    ranges are the ones the program's spans (utils/tracing.py::span) open
+    while a profiler records: pix2pix's train step's by default (RANGES),
+    the cell's model's in a run (models/<model>.py, its RANGES);
   * a backward kernel takes the "-bwd" group of the forward op whose
     autograd node ran it: the profiler's sequence number ties an
     `autograd::engine::evaluate_function` row to the last forward op that

@@ -46,8 +46,8 @@ def seconds(w: dict) -> float:
                          (w["elementwise"], "float32"))
 
 
-def step_floor_seconds(batch: int, size: int, chain: str, hw: int = 64 * 64) -> float:
+def step_floor_seconds(batch: int, size: int, chain: str, hw: int) -> float:
     """A histogram train step's least time: two forwards (real and fake)
-    and one backward (fake) over the batch."""
+    and one backward (fake) over the batch of `hw` pixels an image."""
     return (2 * seconds(work("fwd", batch, hw, size, chain))
             + seconds(work("bwd", batch, hw, size, chain)))

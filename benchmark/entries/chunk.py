@@ -15,10 +15,6 @@ import time
 
 import torch
 
-from ..harness import program
-
-METRIC_NAMES = ("generator/total_loss", "discriminator/total_loss")
-
 
 def _make_chunk(ctx, config):
     from palette_and_histo_gan_tpu_torch.train.steps import make_train_chunk
@@ -30,11 +26,12 @@ def setup(ctx, make_chunk=_make_chunk) -> None:
     from palette_and_histo_gan_tpu_torch.config import check_supported, float32_exact
     from palette_and_histo_gan_tpu_torch.train.state import create_train_state
 
-    config = program.port_config(ctx.cell, ctx.seeds)
+    model = ctx.cell.model
+    config = model.port_config(ctx.cell, ctx.seeds)
     check_supported(config, ctx.device)
     ctx.config = config
     ctx.state = create_train_state(config, ctx.device, ctx.seeds["weights"])
-    program.load_state(ctx.state, ctx.weights, ctx.seeds)
+    model.load_state(ctx.state, ctx.weights, ctx.seeds)
     ctx.dataset = ctx.data["train"]
     chunk = make_chunk(ctx, config)
     exact = float32_exact if config.compute_dtype == "float32" else contextlib.nullcontext
@@ -50,20 +47,22 @@ def warm(ctx) -> None:
     """Nothing beyond the first steps: they ran every shape of the window."""
 
 
-def _fetch(metrics: dict) -> list[float]:
-    """The chunk's one device-to-host copy; the window's losses."""
+def _fetch(model, metrics: dict) -> list[float]:
+    """The chunk's one device-to-host copy; its losses, a step's generator
+    and discriminator loss after another."""
     names = list(metrics)
     host = torch.stack([metrics[k] for k in names]).float().cpu()
-    return [v for k in METRIC_NAMES for v in host[names.index(k)].tolist()]
+    return [v for pair in model.losses_of(dict(zip(names, host))) for v in pair]
 
 
 def window(ctx, seconds: float, tracer) -> dict:
     per_chunk = ctx.cell.traffic["steps_per_chunk"]
+    model = ctx.cell.model
     losses, steps, i = [], 0, 0
     t0 = time.perf_counter()
     while True:
         tracer.at_chunk(i)
-        losses += _fetch(ctx.run_chunk(per_chunk))
+        losses += _fetch(model, ctx.run_chunk(per_chunk))
         steps += per_chunk
         i += 1
         if ctx.agree(time.perf_counter() - t0 >= seconds):

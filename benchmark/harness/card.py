@@ -54,13 +54,14 @@ class Sampler:
 
 def read_launches() -> dict:
     """Every hand-written kernel's launches in this process, by the TPU
-    kernel each stands in for (the port's counters)."""
-    from palette_and_histo_gan_tpu_torch.ops import (augment_kernel, histogram_kernel, moments,
-                                                      palette_kernel)
+    kernel each stands in for, or by its own name where it replaces none
+    ("CCE-fwd", "CCE-bwd": the indexed losses) (the port's counters)."""
+    from palette_and_histo_gan_tpu_torch.ops import (augment_kernel, histogram_kernel,
+                                                      indexed_loss, moments, palette_kernel)
 
     counters = ((augment_kernel.launches, {"packed": "K1", "rgba": "K2"}),
                 (histogram_kernel.launches, {}), (palette_kernel.launches, {}),
-                (moments.launches, {}))
+                (moments.launches, {}), (indexed_loss.launches, {}))
     return {names.get(k, k): n for counts, names in counters for k, n in counts.items()}
 
 

@@ -38,7 +38,6 @@ import torch
 from ..counts import traffic as traffic_gen
 from ..counts import weights as weights_gen
 from ..reference import compare
-from ..reference import step as reference_step
 from . import card, guard, program, spec
 from .trace import Tracer, View
 
@@ -66,7 +65,8 @@ def apply_overrides(cell, overrides: dict | None):
     "traffic": {...}, "limits": {...}, "chips": n}."""
     if not overrides:
         return cell
-    cell.config["settings"].update(overrides.get("settings", {}))
+    if "settings" in overrides:
+        cell.config["settings"].update(overrides["settings"])
     cell.traffic.update(overrides.get("traffic", {}))
     for name, limit in overrides.get("limits", {}).items():
         cell.limits[name] = {"limit": limit}
@@ -207,22 +207,22 @@ class Phases:
 
 
 def first_steps(cell, seed: int, device, group, phases: Phases | None = None):
-    """The cell's set-up from `seed`: the data and weights drawn on the
-    device, the entry's program built on them, its first `check_steps`
+    """The cell's set-up from `seed`: the model's data and weights drawn on
+    the device, the entry's program built on them, its first `check_steps`
     steps taken and read. Returns (ctx, entry, readings)."""
     phases = phases or Phases()
     seeds = traffic_gen.sub_seeds(seed)
+    model = cell.model
     ctx = types.SimpleNamespace(cell=cell, device=device, group=group, seeds=seeds,
                                 agree=_agree(group))
-    ctx.data = traffic_gen.make_splits(cell.config, cell.traffic, seeds["data"], device)
+    ctx.data = model.make_splits(cell.config, cell.traffic, seeds["data"], device)
     phases.mark("data", device)
-    ctx.weights = weights_gen.draw(cell.config, seeds["weights"], device)
+    ctx.weights = weights_gen.draw(model.parameter_shapes(cell.config), seeds["weights"], device)
     phases.mark("weights", device)
     entry = spec.entry(cell.traffic["entry"])
     entry.setup(ctx)
     phases.mark("program", device)
-    readings = program.first_readings(ctx.run_chunk, ctx.state, ctx.weights,
-                                      cell.config["settings"]["beta1"],
+    readings = program.first_readings(cell, ctx.run_chunk, ctx.state, ctx.weights,
                                       cell.traffic["check_steps"])
     phases.mark("first_steps", device)
     ctx.weights = None
@@ -230,11 +230,12 @@ def first_steps(cell, seed: int, device, group, phases: Phases | None = None):
 
 
 def reference_readings(cell, ctx, precision: str = "float32") -> dict:
-    """The reference's first steps from the run's seeds and data, the
+    """The model's reference steps from the run's seeds and data, the
     weights drawn again from the seed."""
-    w = weights_gen.draw(cell.config, ctx.seeds["weights"], ctx.device)
-    return reference_step.train(cell.config, cell.traffic, w, ctx.data["train"], ctx.seeds,
-                                cell.traffic["check_steps"], precision)
+    model = cell.model
+    w = weights_gen.draw(model.parameter_shapes(cell.config), ctx.seeds["weights"], ctx.device)
+    return model.reference_train(cell.config, cell.traffic, w, ctx.data["train"], ctx.seeds,
+                                 cell.traffic["check_steps"], precision)
 
 
 def run(args, t_start: float, out) -> int:
@@ -248,7 +249,7 @@ def run(args, t_start: float, out) -> int:
     if args.plant_fault:
         from .. import faults
 
-        faults.plant(args.plant_fault)
+        faults.plant(args.plant_fault, cell.model)
     printed = with_ranks(args, cell, device,
                          lambda group: _run_rank(args, cell, device, group, t_start, phases))
     if printed is not None:  # rank 0, every other rank ended

@@ -11,7 +11,8 @@ around the traced part. `View` is what a reader of metrics/ gets:
   * device_seconds(match), host_seconds(name), groups(): device seconds of
     the kernels whose name matches, host seconds of the CPU events of a
     name on the window's thread, and device seconds by the step's layers
-    (counts/attribution.py, built when first asked for);
+    (counts/attribution.py on the ranges of the cell's model, built when
+    first asked for);
   * breakdown(): the device ops that took most time and the longest idle
     gaps by what the host was doing.
 """
@@ -132,7 +133,7 @@ class View:
     def groups(self) -> dict:
         """Device seconds of the traced window by the step's layer."""
         if self._groups is None:
-            att = Attribution(self.prof)
+            att = Attribution(self.prof, self.cell.model.RANGES)
             out = collections.Counter()
             lo, hi = (self.start - self.prof.profiler.kineto_results.trace_start_ns()) / 1e3, None
             hi = lo + self.window_s * 1e6

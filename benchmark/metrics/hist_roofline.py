@@ -2,8 +2,9 @@
 forwards and one backward a step (counts/histogram_work.py: products at
 the chain dtype's tensor-core peak, taken once; elementwise at float32's;
 bytes once) / the device time of the kernels the step's "hist-fwd" and
-"hist-bwd" groups hold (counts/attribution.py), over the traced window.
-Each rank computes its own rows of the batch."""
+"hist-bwd" groups hold (counts/attribution.py), over the traced window,
+at the model's image side (its SIDE). Each rank computes its own rows of
+the batch."""
 
 from benchmark.counts import histogram_work
 
@@ -17,5 +18,6 @@ def read(view):
         return None
     batch = view.cell.traffic["batch_size"] // view.world
     size = view.cell.config["settings"]["histogram_size"]
-    floor = histogram_work.step_floor_seconds(batch, size, view.cell.dtype) * view.steps
+    hw = view.cell.model.SIDE ** 2
+    floor = histogram_work.step_floor_seconds(batch, size, view.cell.dtype, hw) * view.steps
     return 100.0 * floor / measured

@@ -6,6 +6,7 @@ import torch
 
 from benchmark.counts import attribution, flops, histogram_work, traffic, weights
 from benchmark.harness import spec
+from benchmark.models import pix2pix
 from palette_and_histo_gan_tpu_torch import roofline as port_roofline
 from palette_and_histo_gan_tpu_torch.config import config_for_variant
 from palette_and_histo_gan_tpu_torch.ops import histogram_kernel
@@ -62,14 +63,14 @@ def test_histogram_step_floor_at_b1024():
     # bfloat16: 2 forwards of 0.132 ms and a backward of 0.240 ms, each
     # bound by its elementwise chain at float32's 67 TFLOP/s; float32: the
     # products at one TF32 pass, 0.208 and 0.416 ms
-    floor = histogram_work.step_floor_seconds(1024, 64, "bfloat16")
+    floor = histogram_work.step_floor_seconds(1024, 64, "bfloat16", 64 * 64)
     assert floor == pytest.approx(2 * 0.1320e-3 + 0.2403e-3, rel=2e-3)
-    floor = histogram_work.step_floor_seconds(1024, 64, "float32")
+    floor = histogram_work.step_floor_seconds(1024, 64, "float32", 64 * 64)
     assert floor == pytest.approx(2 * 0.2082e-3 + 0.4164e-3, rel=2e-3)
 
 
 def test_attribution_names_equal_the_programs():
-    assert attribution.RANGES == port_roofline.RANGES
+    assert attribution.RANGES == pix2pix.RANGES == port_roofline.RANGES
     assert attribution.LAYOUT_KERNELS == port_roofline.LAYOUT_KERNELS
     assert attribution.LAYOUT_PARENTS == port_roofline.LAYOUT_PARENTS
     assert attribution.backward_group("G-fwd") == "G-bwd"
@@ -112,7 +113,7 @@ def test_weights_fill_the_programs_parameters(name, width):
     if width is not None:
         c["settings"].update(down_filters=[width] * 6, up_filters=[width] * 6)
     g, d = build_models(config, "cpu", 0)
-    w = weights.draw(c, 3, "cpu")
+    w = weights.draw(pix2pix.parameter_shapes(c), 3, "cpu")
     for net, module in (("generator", g), ("discriminator", d)):
         params = dict(module.named_parameters())
         assert list(w[net]) == list(params)

@@ -6,11 +6,16 @@ unchanged. Also: a run exits non-zero without a result line where the
 program is missing, and where no card is present."""
 
 import hashlib
+import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 
+import pytest
+
+from benchmark.counts.peaks import PEAK
 from benchmark.tests.conftest import ROOT, TINY, checkout_copy
 from benchmark.tests.test_bench_faults import run_cell
 
@@ -72,6 +77,53 @@ def test_a_cell_config_traffic_and_metric_added_by_files_alone(tmp_path):
     assert result["correct"] is True, result["checks"]
     assert result["metrics"]["gfwd.host_ms"]["value"] > 0
     assert "augment" not in proc.stdout.split("launches a step:")[1].split(";")[0]
+
+
+TOY = os.path.join(ROOT, "benchmark", "tests", "toy")
+
+
+def _load(path):
+    spec = importlib.util.spec_from_file_location("toy_model", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("fault,correct", [(None, True), ("half_batch", False)])
+def test_another_model_added_by_files_alone(fault, correct, tmp_path):
+    """The toy model (tests/toy/: its configuration, model module, entry,
+    traffic and limits) added to a copy as new files and BENCHMARK.json
+    entries: a run of its cell is correct, refuses the half-batch fault
+    the model plants, and reads step.mfu from the model's own count."""
+    dst = _copy(tmp_path)
+    before = _digests(dst)
+    added = [os.path.relpath(os.path.join(base, f), TOY)
+             for base, _, files in os.walk(TOY) for f in files if not f.endswith(".pyc")]
+    for rel in added:
+        assert not (dst / "benchmark" / rel).exists(), rel
+        (dst / "benchmark" / rel).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(os.path.join(TOY, rel), dst / "benchmark" / rel)
+    bench = json.loads((dst / "BENCHMARK.json").read_text())
+    config = json.loads((dst / "benchmark/configs/toy.json").read_text())
+    bench["configs"].append({"name": "toy", "source": config["source"],
+                             "file": "benchmark/configs/toy.json", "reduced": [],
+                             "why": "a throwaway model"})
+    bench["workloads"].append({"name": "toy.toy-b8", "config": "toy", "traffic": "toy-b8",
+                               "chips": 1, "why": "a throwaway cell"})
+    (dst / "BENCHMARK.json").write_text(json.dumps(bench))
+    after = _digests(dst)
+    assert not [k for k, v in before.items() if after[k] != v and k != "BENCHMARK.json"]
+    proc, result = run_cell("toy.toy-b8", {}, tmp_path, fault, trace=1, cwd=str(dst),
+                            env={"PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert result["correct"] is correct, result["checks"]
+    if fault:
+        return
+    mix = json.loads((dst / "benchmark/traffic/toy-b8.json").read_text())
+    images = mix["trace_chunks"] * mix["steps_per_chunk"] * mix["batch_size"]
+    per_image = _load(dst / "benchmark/models/toy.py").flops_per_image(config)
+    expected = 100.0 * per_image * images / (result["device"]["window_s"] * PEAK["float32"])
+    assert result["metrics"]["step.mfu"]["value"] == pytest.approx(expected, rel=1e-12)
 
 
 def test_no_result_without_the_program(tmp_path):

@@ -27,13 +27,15 @@ def _program(cell, seed, overrides):
     seeds = traffic_gen.sub_seeds(seed)
     ctx = types.SimpleNamespace(cell=cell, device=torch.device("cpu"), group=None,
                                 seeds=seeds, agree=lambda flag: flag)
-    ctx.data = traffic_gen.make_splits(cell.config, cell.traffic, seeds["data"], "cpu")
-    ctx.weights = weights_gen.draw(cell.config, seeds["weights"], "cpu")
+    model = cell.model
+    ctx.data = model.make_splits(cell.config, cell.traffic, seeds["data"], "cpu")
+    ctx.weights = weights_gen.draw(model.parameter_shapes(cell.config), seeds["weights"], "cpu")
     entry = spec.entry(cell.traffic["entry"])
     entry.setup(ctx)
-    readings = program.first_readings(ctx.run_chunk, ctx.state, ctx.weights, 0.5, 3)
+    readings = program.first_readings(cell, ctx.run_chunk, ctx.state, ctx.weights, 3)
     entry.free(ctx)
-    ref = step.train(cell.config, cell.traffic, weights_gen.draw(cell.config, seeds["weights"], "cpu"),
+    ref = step.train(cell.config, cell.traffic,
+                     weights_gen.draw(model.parameter_shapes(cell.config), seeds["weights"], "cpu"),
                      ctx.data["train"], seeds, 3)
     return cell, readings, ref
 

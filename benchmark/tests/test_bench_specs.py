@@ -1,12 +1,14 @@
 """BENCHMARK.json against the rules it is written to, and every file it
 names found by name."""
 
+import json
 import os
 import re
 
 import pytest
 
 from benchmark.harness import spec
+from benchmark.tests.conftest import checkout_copy
 
 BENCH = spec.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -64,6 +66,26 @@ def test_cells_and_configs():
         assert data["source"] == c["source"] and data["reduced"] == c["reduced"]
 
 
+@pytest.mark.parametrize("model,message", [
+    (None, "no \"model\""), ("no_such_model", "there is no benchmark/models/no_such_model.py"),
+    ("../pix2pix", "no \"model\""), ("__init__", "lacks make_splits")])
+def test_a_configuration_names_a_model_module(model, message, tmp_path):
+    """A configuration without "model", or naming no module of models/ or
+    one that lacks a part, stops the run with a message that names the
+    configuration's file."""
+    dst = checkout_copy(tmp_path)
+    path = dst / "benchmark/configs/histogram.json"
+    config = json.loads(path.read_text())
+    config.pop("model")
+    if model is not None:
+        config["model"] = model
+    path.write_text(json.dumps(config))
+    with pytest.raises(SystemExit) as stop:
+        spec.cell("histogram.b1024-f32", root=str(dst), bench_dir=str(dst / "benchmark"))
+    assert "benchmark/configs/histogram.json" in str(stop.value)
+    assert message in str(stop.value)
+
+
 def test_end_to_end_bounds():
     names = {m["name"] for m in BENCH["end_to_end"]}
     assert "setup_s" in names and len(names) >= 2
@@ -75,6 +97,8 @@ def test_end_to_end_bounds():
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_every_cell_loads_by_name(cell):
     c = spec.cell(cell)
+    model = c.model
+    assert all(hasattr(model, part) for part in spec.MODEL_PARTS)
     assert c.traffic["entry"] in ("chunk", "dp_chunk")
     entry = spec.entry(c.traffic["entry"])
     for fn in ("setup", "warm", "window", "free"):
