@@ -589,6 +589,78 @@ def phase_histogram_check(device) -> dict:
     return worst
 
 
+# HistoGAN's histogram shape: paper256's minibatch, 150x150 pixels (the
+# resize of train/histogan.py), not a multiple of the kernels' 64-pixel tile
+HISTOGAN_HIST_SHAPE = (64, 150 * 150)
+
+
+def phase_histogram_padded(device, shape=HISTOGAN_HIST_SHAPE, iters: int = 20) -> dict:
+    """K3b and K4b in a float32 chain through FusedHistogram at a pixel
+    count that is not a multiple of 64 (the pad path: Iy = 0 on the pad
+    pixels, their backward rows dropped) against the plain versions on the
+    unpadded pixels, forward and backward, then timed (kernel launches at
+    the padded shape, CUDA events; plain, kernel, kernel, plain). The
+    4,096-pixel launches are untouched (no pad). Returns the errors and
+    times."""
+    from palette_and_histo_gan_tpu_torch.ops import histogram_kernel as hk
+
+    b, hw = shape
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    padded = hw + (-hw % hk.PIXEL_TILE)
+    fwd_pixels = hk.forward_block_pixels(b, padded, sms)
+    log("histpad", f"B={b} HW={hw} padded to {padded}: a float32 forward block owns {fwd_pixels} "
+        f"pixels ({-(-padded // fwd_pixels)} parts, the last {padded - (-(-padded // fwd_pixels) - 1) * fwd_pixels}); "
+        f"a backward block owns {hk.backward_block_pixels(b, padded, sms, torch.float32)}")
+    rng = np.random.default_rng(SEED)
+    flat01 = torch.from_numpy(rng.integers(0, 256, (b, hw, 3), dtype=np.uint8)).to(device).float() / 255.0
+    g = torch.from_numpy(rng.standard_normal((b, 3, 64, 64), dtype=np.float32) * 1e-3).to(device)
+    kw = dict(size=64, method="inverse-quadratic", sigma=0.02, chain=torch.float32)
+    before = dict(hk.launches)
+    x = flat01.clone().requires_grad_(True)
+    got = hk.FusedHistogram.apply(x, 64, "inverse-quadratic", 0.02, torch.float32, ("K3b", "K4b"))
+    got.backward(g)
+    torch.cuda.synchronize()
+    launched = {k: hk.launches[k] - before[k] for k in ("K3b", "K4b")}
+    if launched != {"K3b": 1, "K4b": 1}:
+        raise AssertionError(f"the padded histogram launched {launched}, not K3b and K4b once each")
+    logs, iy = hk.logs_and_intensity(flat01)
+    ref = hk.histogram_forward_plain(logs, iy, **kw)
+    rows = hk.histogram_backward_plain(logs, iy, g, **kw)
+    ref_grad = hk.finish(rows, flat01, iy)
+    torch.cuda.synchronize()
+    out = {}
+    for name, a, r, tol in (("K3b", got, ref, HIST_TOL[("fwd", "float32")]),
+                            ("K4b", x.grad, ref_grad, HIST_TOL[("bwd", "float32")])):
+        err = float((a - r).abs().max())
+        rel = err / float(r.abs().max())
+        log("histpad", f"{name} B={b} HW={hw} float32, padded: max|kernel - plain| {err:.3e}, "
+            f"{rel:.3e} of max|plain| (tol {tol:g})")
+        if not (math.isfinite(rel) and rel <= tol):
+            raise AssertionError(f"{name} at {hw} pixels disagrees with its plain version")
+        out[name] = {"max_abs_err": err, "rel": rel}
+    plogs, piy = hk.pad_pixels(logs, iy)
+    calls = {
+        "K3b": (lambda: hk.histogram_forward_cuda(plogs, piy, kernel="K3b", **kw),
+                lambda: hk.histogram_forward_plain(logs, iy, **kw)),
+        "K4b": (lambda: hk.histogram_backward_cuda(plogs, piy, g, kernel="K4b", **kw),
+                lambda: hk.histogram_backward_plain(logs, iy, g, **kw)),
+    }
+    for name, (kernel, plain) in calls.items():
+        plain_ms = [cuda_ms(plain, 2)]
+        kernel_ms = [cuda_ms(kernel, iters), cuda_ms(kernel, iters)]
+        plain_ms.append(cuda_ms(plain, 2))
+        direction = "fwd" if name == "K3b" else "bwd"
+        # the kernels table's basis: the products on the kernel's units, the
+        # elementwise chain at float32's, the bytes (histogram_bound)
+        bound_ms, by = histogram_bound(hk.work(direction, b, hw, chain=torch.float32))
+        out[name].update(kernel_ms=sum(kernel_ms) / 2, plain_ms=sum(plain_ms) / 2,
+                         bound_ms=bound_ms, bound_by=by)
+        log("histpad", f"{name} B={b} HW={hw} float32: kernel {kernel_ms[0]:.4f}, {kernel_ms[1]:.4f} ms, "
+            f"plain {plain_ms[0]:.3f}, {plain_ms[1]:.3f} ms; bound {bound_ms:.4f} ms ({by}), "
+            f"{100 * bound_ms / out[name]['kernel_ms']:.1f}% of it")
+    return out
+
+
 def phase_histogram_times(device) -> dict:
     """Kernel and plain version in each regime's chain, at its batch:
     plain, kernel, kernel, plain. Returns per (kernel, batch) the mean
@@ -3092,7 +3164,8 @@ def main() -> int:
     tensor_core_report()
     kern = phase_kernel_vs_plain(device)
     set_f32_parity_mode()
-    hist = {"worst": phase_histogram_check(device), "times": phase_histogram_times(device)}
+    hist = {"worst": phase_histogram_check(device), "times": phase_histogram_times(device),
+            "padded": phase_histogram_padded(device)}
 
     for label in ("xla/tri", "pallas", "bwd=pallas"):
         worst = phase_parity(device, "histogram", dict(batch_size=4, **HIST_CONFIGS[label][0]))

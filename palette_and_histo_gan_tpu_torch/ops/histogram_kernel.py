@@ -67,7 +67,7 @@ from ..kernels import build
 from .histogram import CHANNEL_TRIPLES, EPSILON, matmul_f32
 
 KERNEL_BINS = 64  # the CUDA kernels are built for 64 bins
-PIXEL_TILE = 64  # and for images of a multiple of 64 pixels
+PIXEL_TILE = 64  # and for images of a multiple of 64 pixels (FusedHistogram pads)
 FORWARD_KERNELS = ("K3a", "K3b")
 BACKWARD_KERNELS = ("K4a", "K4b", "K4c")
 METHODS = ("inverse-quadratic", "RBF")
@@ -472,9 +472,24 @@ def histogram_backward(logs, iy, g, *, size, method, sigma, chain, kernel):
 # ---------------------------------------------------- the fused histograms
 
 
+def pad_pixels(logs: torch.Tensor, iy: torch.Tensor):
+    """logs (B, 3, HW) and Iy (B, HW) with zero pixels appended up to a
+    multiple of PIXEL_TILE, the kernels' tile; as they are where HW is one.
+    A pad pixel has Iy = 0, so it adds nothing to a plane (a pixel of value
+    0 would add its Iy = sqrt(eps) and its logs), and its backward row is
+    the caller's to drop."""
+    hw = logs.shape[-1]
+    pad = -hw % PIXEL_TILE
+    if not pad:
+        return logs, iy
+    return torch.nn.functional.pad(logs, (0, pad)), torch.nn.functional.pad(iy, (0, pad))
+
+
 class FusedHistogram(torch.autograd.Function):
     """(B, HW, 3) float32 pixels in [0, 1] -> (B, 3, size, size), through
-    the forward kernel and the backward kernel named in `kernels`."""
+    the forward kernel and the backward kernel named in `kernels`; HW that
+    is not a multiple of PIXEL_TILE is padded (pad_pixels), the pad
+    pixels' backward rows dropped."""
 
     @staticmethod
     def forward(ctx, flat01, size, method, sigma, chain, kernels):
@@ -482,15 +497,15 @@ class FusedHistogram(torch.autograd.Function):
         ctx.save_for_backward(flat01, logs, iy)
         ctx.args = dict(size=size, method=method, sigma=sigma, chain=chain)
         ctx.bwd_kernel = kernels[1]
-        return histogram_forward(logs, iy, kernel=kernels[0], **ctx.args)
+        return histogram_forward(*pad_pixels(logs, iy), kernel=kernels[0], **ctx.args)
 
     @staticmethod
     def backward(ctx, g):
         flat01, logs, iy = ctx.saved_tensors
         rows = histogram_backward(
-            logs, iy, g.float().contiguous(), kernel=ctx.bwd_kernel, **ctx.args
+            *pad_pixels(logs, iy), g.float().contiguous(), kernel=ctx.bwd_kernel, **ctx.args
         )
-        return finish(rows, flat01, iy), None, None, None, None, None
+        return finish(rows[..., :flat01.shape[1]], flat01, iy), None, None, None, None, None
 
 
 def fused_histogram(image_batch, size, method, sigma, chain, kernels):
