@@ -93,6 +93,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      bfloat16 logits taken as they are, channels-last logits refused.
      Times both kernels against their bytes bound and the plain forward +
      backward at each shape.
+  7c. decoder layouts (phase_decoder_layouts): each of the generator's
+     six UpBlocks at B=1024 float32, dropout on where the block has it,
+     forward and backward to its input and parameters, in the NCHW
+     formulation (cuDNN's transposed convolution on contiguous input, a
+     contiguous dropout mask) and as the port's UpBlock (NHWC, a forward
+     convolution) on the NHWC-strided input the skip concatenation hands
+     it (the 1x1 bottleneck with NCHW strides): CUDA events, parent, port,
+     port, parent; the transposed convolution's TFLOP/s; the device kernels
+     of one forward and backward of each; the outputs within DECODER_TOL
+     of each other.
   8. indexed parity: two full-width float32 indexed steps on the card
      against the same steps on the CPU, from the same weights on the same
      index maps, deterministic dropout; the generator's argmax maps agree
@@ -1212,6 +1222,126 @@ def cce_times(labels, logits, what: str) -> dict:
     il.launches.update(counted)
     return {what: {"fwd_ms": (fwd + fwd2) / 2, "bwd_ms": (bwd + bwd2) / 2, "plain_ms": plain,
                    "fwd_bound_ms": fwd_bound[0], "bwd_bound_ms": bwd_bound[0]}}
+
+
+DECODER_TOL = 1e-4  # relative to the largest |NCHW output|: float32, TF32 off, other sums
+
+
+def nchw_up_block(block, x, drop):
+    """UpBlock.forward as the decoder ran it before it was laid out NHWC:
+    the transposed convolution on contiguous NCHW input, the norm, a
+    contiguous dropout mask, ReLU."""
+    import torch.nn.functional as F
+
+    from palette_and_histo_gan_tpu_torch.models.networks import DROPOUT_RATE
+
+    x = block.norm(F.conv_transpose2d(x, block.weight, stride=2, padding=1))
+    if block.apply_dropout:
+        keep = drop.keep_mask(x.shape, x.device)
+        x = torch.where(keep, x / (1.0 - DROPOUT_RATE), torch.zeros_like(x))
+    return F.relu(x)
+
+
+def up_block_run(block, forward, x, iters: int) -> dict:
+    """forward(x, dropout draw) and its backward to x and the block's
+    parameters, as the step runs them (gradients set to None before each
+    call, a fixed cotangent laid out like the output), with a seeded draw:
+    mean forward and backward ms by CUDA events over `iters` calls after a
+    warm-up, the device kernels of one call by torch.profiler, and the last
+    output."""
+    from palette_and_histo_gan_tpu_torch.models.networks import DropoutDraw
+    from palette_and_histo_gan_tpu_torch.utils.profiling import device_events, device_us
+
+    x = x.detach().requires_grad_(True)
+    inputs = [x, *block.parameters()]
+    cotangent = []
+
+    def call(events=()):
+        for t in inputs:
+            t.grad = None
+        drop = DropoutDraw(torch.Generator(device=x.device).manual_seed(SEED))
+        if events:
+            events[0].record()
+        out = forward(x, drop)
+        if events:
+            events[1].record()
+        if not cotangent:
+            gen = torch.Generator(device=x.device).manual_seed(SEED + 1)
+            drawn = torch.randn(out.shape, generator=gen, device=x.device)
+            cotangent.append(torch.empty_like(out).copy_(drawn))
+        out.backward(cotangent[0], inputs=inputs)
+        if events:
+            events[2].record()
+        return out
+
+    for _ in range(3):
+        call()
+    timed = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(iters)]
+    for events in timed:
+        out = call(events)
+    torch.cuda.synchronize()
+    fwd = sum(e[0].elapsed_time(e[1]) for e in timed) / iters
+    bwd = sum(e[1].elapsed_time(e[2]) for e in timed) / iters
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = sorted(((device_us(e), e.key) for e in device_events(prof)), reverse=True)
+    return {"fwd_ms": fwd, "bwd_ms": bwd, "kernels": kernels, "out": out.detach()}
+
+
+def phase_decoder_layouts(device, batch: int = 1024, iters: int = 10) -> list:
+    """The generator's six UpBlocks at full width, float32 (TF32 off),
+    dropout where the block has it, each fed as its decoder feeds it:
+    "parent", the NCHW formulation (nchw_up_block: cuDNN's transposed
+    convolution) on contiguous input; "port", the port's UpBlock (NHWC, a
+    forward convolution) on the NHWC-strided input the skip concatenation
+    hands it (the 1x1 bottleneck keeps its NCHW strides, which the block
+    re-lays). Per block: forward and backward ms (CUDA events; parent,
+    port, port, parent), the transposed convolution's TFLOP/s at its
+    counted products, the device kernels of one forward and backward, and
+    the two outputs within DECODER_TOL of each other."""
+    from palette_and_histo_gan_tpu_torch.config import config_for_variant
+    from palette_and_histo_gan_tpu_torch.models import networks as tnet
+
+    generator = tnet.build_generator(config_for_variant("histogram"), torch.float32)
+    tnet.init_parameters(generator, torch.Generator().manual_seed(SEED))
+    rows = []
+    for i, block in enumerate(generator.up):
+        block.to(device)
+        cin, cout = block.weight.shape[:2]
+        side = 2 ** i
+        x = torch.randn((batch, cin, side, side), generator=torch.Generator(device=device).manual_seed(SEED + i),
+                        device=device)
+        nhwc = x if side == 1 else x.contiguous(memory_format=torch.channels_last)
+        runs = {"parent": [], "port": []}
+        for layout in ("parent", "port", "port", "parent"):
+            if layout == "parent":
+                runs[layout].append(up_block_run(block, lambda v, d: nchw_up_block(block, v, d), x, iters))
+            else:
+                runs[layout].append(up_block_run(block, block, nhwc, iters))
+        want, got = runs["parent"][0]["out"], runs["port"][0]["out"]
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        flop = 2 * batch * side * side * cin * cout * 16
+        row = {"block": i, "input": [batch, cin, side, side], "gflop_fwd": flop / 1e9, "rel_err": rel}
+        for layout, pair in runs.items():
+            fwd = sum(r["fwd_ms"] for r in pair) / 2
+            bwd = sum(r["bwd_ms"] for r in pair) / 2
+            row[layout] = {"fwd_ms": [r["fwd_ms"] for r in pair], "bwd_ms": [r["bwd_ms"] for r in pair],
+                           "fwd_tflops": flop / fwd / 1e9,
+                           "kernels": [[name, round(us, 1)] for us, name in pair[0]["kernels"]]}
+            log("decoder", f"up{i} {tuple(row['input'])} {layout}: fwd {fwd:.3f} ms "
+                f"({flop / fwd / 1e9:.1f} TFLOP/s), bwd {bwd:.3f} ms")
+            for us, name in pair[0]["kernels"][:6]:
+                log("decoder", f"    {us:9.1f} us  {name[:110]}")
+        log("decoder", f"up{i}: max|port - parent| {rel:.2e} of max|parent| (tol {DECODER_TOL:g})")
+        if not (math.isfinite(rel) and rel <= DECODER_TOL):
+            raise AssertionError(f"up{i}: the port's block disagrees with the NCHW formulation")
+        rows.append(row)
+        del x, nhwc, runs, want, got
+        block.to("cpu")
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_indexed_parity(device) -> float:
@@ -3195,6 +3325,7 @@ def main() -> int:
     pal = phase_palette_check(device)
     in_stats = phase_in_stats(device)
     cce = phase_indexed_loss(device)
+    decoder = phase_decoder_layouts(device)
     worst = phase_indexed_parity(device)
     log("parity", f"indexed: worst relative loss difference {worst:.2e} (tol {PARITY_RTOL})")
     launches.update(phase_indexed_main_path(device))
@@ -3358,6 +3489,9 @@ def main() -> int:
         + f"{k6['ab_ms']['A']:.4f}, B {k6['ab_ms']['B']:.4f} ms)"
         + f"; CCE b1024 f32 {kernels[-1]['ms']:.4f} ms, {100 * kernels[-1]['bound_ms'] / kernels[-1]['ms']:.1f}% "
         + f"of its bytes bound {kernels[-1]['bound_ms']:.4f} ms (plain {kernels[-1]['plain_ms']:.4f} ms)"
+        + "; decoder b1024 f32 fwd + bwd ms parent/port " + ", ".join(
+            f"up{r['block']} {sum(r['parent']['fwd_ms'] + r['parent']['bwd_ms']) / 2:.2f}/"
+            f"{sum(r['port']['fwd_ms'] + r['port']['bwd_ms']) / 2:.2f}" for r in decoder)
         + f"; steps (host ms / device ms / img/s / MFU): histogram f32 b4 {timed_row(f32)} "
         + f"(pallas2 {timed_row(f32_pallas2)}); bf16 b1024 "
         + ", ".join(f"{label} {timed_row(r)} {r['peak_gib']:.2f} GiB" for label, r in bf16.items())

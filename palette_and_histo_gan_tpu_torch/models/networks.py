@@ -14,7 +14,17 @@ networks.py:7-98):
     head conv k4 s1 SAME with bias, (B, 32, 32, 1) patch logits (:625-666).
 
 The public forwards take and return NHWC like the JAX package; inside, the
-tensors are NCHW views of the NHWC memory (channels-last strides).
+tensors are NCHW views of NHWC memory (channels-last strides), so that
+cuDNN runs its NHWC kernels, down to the generator's head. A (B, C, 1, 1)
+tensor, the U-Net's bottleneck, is contiguous in both layouts, and
+PyTorch's layout suggestion (which cuDNN follows: channels-last when the
+input or the weight suggests it) reads its NCHW strides as NCHW; each
+UpBlock therefore gives its input NHWC strides itself (`channels_last`) and
+lays its dropout mask out like its activations. The head alone runs NCHW:
+its input is written into one NCHW buffer, the skip concatenation and the
+SAME padding in one copy (`_HeadInput`), and its logits are NCHW, the
+layout ops/indexed_loss.py takes. `conv_transpose_layouts` counts the
+UpBlocks' transposed convolutions by the layout of their input.
 Dropout draws its masks from an explicit `torch.Generator`, or from a
 `DropoutDraw`, which also says which rows of a larger draw a call keeps:
 a data-parallel rank draws the whole batch's masks and keeps its own rows,
@@ -23,9 +33,16 @@ Parameters stay float32; `dtype` (float32 or bfloat16) is the
 compute type of the convolutions and activations, as flax's `dtype=` is.
 Kernels are initialized N(0, 0.02) from an explicit generator.
 
-The TPU package's alternative lowerings of the same convolutions
-(flip-grad and swap-grad weight gradients, padded or duplicated heads,
-subpixel transposed conv) compute the same function and are not ported.
+Every k4 s2 transposed convolution, the UpBlocks' forward and the
+DownBlocks' input gradient, runs as a forward convolution: the TPU
+package's subpixel lowering (`conv_transpose_k4s2`), computed from the
+same (in, out, 4, 4) weight. cuDNN runs a float32 transposed convolution
+as backward-data on its legacy `dgrad_engine`, in either layout: at
+B=1024 on an H100 (TF32 off) 1.2-35 TFLOP/s on the six up blocks' shapes,
+where its forward convolutions run at ~42. The
+package's other alternative lowerings (flip-grad and swap-grad weight
+gradients, padded or duplicated heads) compute the same function and are
+not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +58,34 @@ LEAKY_RELU_SLOPE = 0.3  # keras LeakyReLU default
 INSTANCE_NORM_EPS = 1e-3  # tensorflow_addons InstanceNormalization default
 CONV_INIT_STD = 0.02
 DROPOUT_RATE = 0.5
+HEAD_PAD = (1, 2, 1, 2)  # SAME for a k4 s1 window: 1 before, 2 after, W then H
+
+# UpBlock transposed convolutions issued with an NHWC input and with any
+# other, in this process, always counted; reset_conv_transpose_layouts()
+# zeroes them
+conv_transpose_layouts = {"channels_last": 0, "other": 0}
+
+
+def reset_conv_transpose_layouts() -> None:
+    for key in conv_transpose_layouts:
+        conv_transpose_layouts[key] = 0
+
+
+def _nhwc_strides(shape) -> tuple:
+    _, c, h, w = shape
+    return (h * w * c, 1, w * c, c)
+
+
+def channels_last(x: torch.Tensor) -> torch.Tensor:
+    """`x` (B, C, H, W) in NHWC memory with NHWC strides. A (B, C, 1, 1)
+    tensor is NHWC contiguous whatever its strides, so
+    `contiguous(memory_format=torch.channels_last)` keeps NCHW strides,
+    which PyTorch, and so cuDNN, take as NCHW: it is copied (B x C
+    elements). The choice goes by shape, not strides, so that an exported
+    program, traced on strides that need not be the run's, makes it too."""
+    if x.shape[-2:] == (1, 1):
+        return x.clone(memory_format=torch.channels_last)
+    return x.contiguous(memory_format=torch.channels_last)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +112,82 @@ class DropoutDraw:
         if missing:
             keep = torch.cat([keep, keep.new_ones((missing, *shape[1:]))])
         return keep
+
+
+def _phase_weight(weight: torch.Tensor) -> torch.Tensor:
+    """A k4 s2 SAME transposed convolution's (in, out, 4, 4) weight as the
+    (4 out, in, 2, 2) weight of one stride-1 k2 convolution whose output
+    channels are the four output phases (ry, rx) in the order (0, 0), (0, 1),
+    (1, 0), (1, 1). out[2m + r] reads the input at m - 1 + r through tap
+    3 - r and at m + r through tap 1 - r, so phase r's 2x2 window is the
+    spatially flipped weight's taps r and r + 2."""
+    cin, cout = weight.shape[:2]
+    flipped = weight.flip(2, 3).view(cin, cout, 2, 2, 2, 2)  # (in, out, a, ry, b, rx)
+    return flipped.permute(3, 5, 1, 0, 2, 4).reshape(4 * cout, cin, 2, 2)
+
+
+def conv_transpose_k4s2(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """F.conv_transpose2d(x, weight, stride=2, padding=1) by a forward
+    convolution (subpixel): one k2 s1 convolution over the 1-padded input
+    gives each 2x2 window's four output phases, and phase (ry, rx) is the
+    (H, W) block of its channels at spatial offset (ry, rx), interleaved
+    into out[2m + ry, 2n + rx]. cuDNN runs a float32 transposed convolution
+    as backward-data, on its legacy `dgrad_engine` in either layout; this
+    runs its forward kernels. The same products summed in another order,
+    and (H + 1)(W + 1) / HW of them."""
+    b, _, h, w = x.shape
+    c = weight.shape[1]
+    y = F.conv2d(x, _phase_weight(weight), padding=1)  # (B, 4C, H + 1, W + 1)
+    sb, sc, sh, sw = y.stride()
+    # y[b, (2 ry + rx) C + c, m + ry, n + rx] as (B, C, H, ry, W, rx): one view
+    phases = y.as_strided((b, c, h, 2, w, 2), (sb, sc, sh, 2 * c * sc + sh, sw, c * sc + sw),
+                          y.storage_offset())
+    out = torch.empty((b, c, 2 * h, 2 * w), dtype=y.dtype, device=y.device,
+                      memory_format=torch.channels_last if sc == 1 else torch.contiguous_format)
+    out.view(b, c, h, 2, w, 2).copy_(phases)
+    return out
+
+
+def _weight_grad(grad, x, weight, transposed: bool) -> torch.Tensor:
+    return torch.ops.aten.convolution_backward(
+        grad, x, weight, None, [2, 2], [1, 1], [1, 1], transposed, [0, 0], 1,
+        [False, True, False])[1]
+
+
+class _ConvK4S2(torch.autograd.Function):
+    """F.conv2d(x, weight, stride=2, padding=1) whose input gradient, a
+    transposed convolution of the output gradient, is conv_transpose_k4s2;
+    the weight gradient is cuDNN's, as autograd's."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return F.conv2d(x, weight, stride=2, padding=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        wants_x, wants_weight = ctx.needs_input_grad
+        return (conv_transpose_k4s2(grad, weight) if wants_x else None,
+                _weight_grad(grad, x, weight, False) if wants_weight else None)
+
+
+class _ConvTransposeK4S2(torch.autograd.Function):
+    """conv_transpose_k4s2 with autograd's backward of
+    F.conv_transpose2d(x, weight, stride=2, padding=1): the input gradient
+    a forward convolution, the weight gradient cuDNN's."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return conv_transpose_k4s2(x, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        wants_x, wants_weight = ctx.needs_input_grad
+        return (F.conv2d(grad, weight, stride=2, padding=1) if wants_x else None,
+                _weight_grad(grad, x, weight, True) if wants_weight else None)
 
 
 class InstanceNorm(nn.Module):
@@ -110,7 +231,7 @@ class DownBlock(nn.Module):
         self.norm = InstanceNorm(filters) if apply_norm else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), stride=2, padding=1)
+        x = _ConvK4S2.apply(x.to(self.dtype), self.weight.to(self.dtype))
         if self.norm is not None:
             x = self.norm(x)
         return F.leaky_relu(x, LEAKY_RELU_SLOPE)
@@ -134,24 +255,28 @@ class UpBlock(nn.Module):
 
     def forward(self, x, generator: torch.Generator | DropoutDraw | None = None,
                 deterministic: bool = False) -> torch.Tensor:
-        x = F.conv_transpose2d(
-            x.to(self.dtype), self.weight.to(self.dtype), stride=2, padding=1
-        )
+        x = channels_last(x.to(self.dtype))
+        conv_transpose_layouts["channels_last" if x.stride() == _nhwc_strides(x.shape)
+                               else "other"] += 1
+        x = _ConvTransposeK4S2.apply(x, self.weight.to(self.dtype))
         x = self.norm(x)
         if self.apply_dropout and not deterministic:
             if generator is None:
                 raise ValueError("dropout needs an explicit torch.Generator or DropoutDraw")
             if isinstance(generator, torch.Generator):
                 generator = DropoutDraw(generator)
-            # flax nn.Dropout: keep with probability 1 - rate, scale by 1/keep
-            keep = generator.keep_mask(x.shape, x.device)
+            # flax nn.Dropout: keep with probability 1 - rate, scale by 1/keep;
+            # the mask is drawn (B, C, H, W) contiguous and then laid out like x,
+            # since an elementwise op that mixes layouts writes NCHW
+            keep = channels_last(generator.keep_mask(x.shape, x.device))
             x = torch.where(keep, x / (1.0 - DROPOUT_RATE), torch.zeros_like(x))
         return F.relu(x)
 
 
 class HeadConv(nn.Module):
     """Conv k4 s1 SAME with bias. SAME pads a k4 window asymmetrically,
-    1 before and 2 after each spatial axis, hence the explicit F.pad."""
+    1 before and 2 after each spatial axis (HEAD_PAD), hence the explicit
+    F.pad; `conv_padded` takes an input padded already."""
 
     def __init__(self, in_channels: int, features: int,
                  dtype: torch.dtype = torch.float32):
@@ -161,8 +286,37 @@ class HeadConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.pad(x.to(self.dtype), (1, 2, 1, 2))
+        return self.conv_padded(F.pad(x.to(self.dtype), HEAD_PAD))
+
+    def conv_padded(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x, self.weight.to(self.dtype), self.bias.to(self.dtype))
+
+
+class _HeadInput(torch.autograd.Function):
+    """cat([x, skip], channels) padded by HEAD_PAD, written into one NCHW
+    buffer: the one copy that the concatenation and the pad made anyway
+    also turns the NHWC decoder's output into the head's NCHW input.
+    Backward hands both gradients back NHWC, one copy each, so that the
+    decoder's backward does not run on NCHW gradients."""
+
+    @staticmethod
+    def forward(ctx, x, skip):
+        b, c, h, w = x.shape
+        left, right, top, bottom = HEAD_PAD
+        out = x.new_zeros((b, c + skip.shape[1], top + h + bottom, left + w + right))
+        out[:, :c, top:top + h, left:left + w] = x
+        out[:, c:, top:top + h, left:left + w] = skip
+        ctx.channels, ctx.size = c, (h, w)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        left, _, top, _ = HEAD_PAD
+        h, w = ctx.size
+        inner = grad[:, :, top:top + h, left:left + w]
+        wants_x, wants_skip = ctx.needs_input_grad
+        return (channels_last(inner[:, :ctx.channels]) if wants_x else None,
+                channels_last(inner[:, ctx.channels:]) if wants_skip else None)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -229,10 +383,10 @@ class UnetGenerator(nn.Module):
             x = block(x)
             skips.append(x)
         skip_sources = list(reversed(skips[:-1])) + [inputs]
-        for block, skip in zip(self.up, skip_sources):
-            x = block(x, generator, deterministic)
-            x = torch.cat([x, skip.to(x.dtype)], dim=1)
-        x = self.head(x)
+        x = self.up[0](x, generator, deterministic)
+        for block, skip in zip(self.up[1:], skip_sources):
+            x = block(torch.cat([x, skip.to(x.dtype)], dim=1), generator, deterministic)
+        x = self.head.conv_padded(_HeadInput.apply(x, skip_sources[-1].to(x.dtype)))
         if logits or self.last_activation == "linear":
             return _nhwc(x)
         if self.last_activation == "tanh":

@@ -18,10 +18,26 @@
   tests/test_parity.py:296-328 holds the JAX package to (every gradient's
   norm within 0.2%, small tensors whole, large ones along fixed random
   projections), through the default "tri" histogram and the float32 plain
-  versions of the three kernel-backed configurations.
+  versions of the three kernel-backed configurations;
+* the decoder's layout, in the RGBA (4 -> 4) and the indexed (1 -> 256)
+  generator at full width: no transposed convolution reaches cuDNN; every
+  UpBlock's convolution gets operands that cuDNN takes as channels-last
+  (the input or the weight suggests it, `cudnn_conv_suggest_memory_format`'s
+  rule), the 1x1 bottleneck's input included, and so do their input
+  gradients' convolutions; the head gets contiguous NCHW input and gives
+  NCHW logits; the counter reads 6 channels-last and 0 other a forward.
+  Outputs, D's outputs on them and every parameter's gradient equal the
+  NCHW decoder (cuDNN's transposed convolution on contiguous input, cat
+  then pad) in float64, dropout on; the kept dropout positions are bit for
+  bit those of a contiguous (B, C, H, W) draw;
+* the forward-convolution lowerings of k4 s2 convolutions and transposed
+  convolutions, forward and both gradients, in float64.
 """
 
+import copy
+import functools
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from torch._prims_common import suggest_memory_format
 
 from palette_and_histo_gan_tpu import config as jconfig
 from palette_and_histo_gan_tpu.models import networks as jnet
@@ -269,3 +286,173 @@ def test_histogram_generator_gradients_match_tf(golden_histogram_graph, histogra
     grads = torch.autograd.grad(loss, params, retain_graph=True)
     fixture = np.load(os.path.join(GOLDEN, "networks_grads_histogram.npz"))
     _assert_grads_match(_generator_grads_to_tf(gen, dict(zip(names, grads))), fixture, "g.")
+
+
+def _full_width(variant: str, dtype=torch.float32):
+    config = config_for_variant(variant)
+    g = tnet.build_generator(config, dtype).to(dtype)
+    d = tnet.build_discriminator(config, dtype).to(dtype)
+    draw = torch.Generator().manual_seed(0)
+    tnet.init_parameters(g, draw)
+    tnet.init_parameters(d, draw)
+    rng = np.random.default_rng(1)
+    source = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, config.generator_in_channels)))
+    return g, d, source.to(dtype)
+
+
+def _nchw_generator(g, x, generator):
+    """UnetGenerator.forward(..., logits=True) with the decoder written as
+    plain NCHW PyTorch: F.conv_transpose2d on contiguous input, a contiguous
+    dropout mask, the last skip concatenated and then padded by the head."""
+    x = x.permute(0, 3, 1, 2)
+    inputs, skips = x, []
+    for block in g.down:
+        x = block(x)
+        skips.append(x)
+    for block, skip in zip(g.up, list(reversed(skips[:-1])) + [inputs]):
+        x = block.norm(F.conv_transpose2d(x.contiguous(), block.weight, stride=2, padding=1))
+        if block.apply_dropout:
+            keep = torch.rand(x.shape, generator=generator) < 1.0 - tnet.DROPOUT_RATE
+            x = torch.where(keep, x / (1.0 - tnet.DROPOUT_RATE), torch.zeros_like(x))
+        x = torch.cat([F.relu(x), skip], dim=1)
+    return g.head(x.contiguous()).permute(0, 2, 3, 1)
+
+
+def _discriminated(d, out, source):
+    """D's prediction on the generator's output: the RGBA image, or the
+    indexed generator's expected index (a differentiable stand-in for the
+    argmax map the indexed step gives D)."""
+    if out.shape[-1] != source.shape[-1]:
+        out = (out * torch.arange(out.shape[-1], dtype=out.dtype)).sum(-1, keepdim=True)
+    return d(out, source)
+
+
+@pytest.mark.parametrize("variant", ["histogram", "indexed"])
+def test_decoder_runs_channels_last_to_an_nchw_head(variant, monkeypatch):
+    g, _, source = _full_width(variant)
+    calls = []
+    backward = []
+
+    def recorded(name):
+        conv = getattr(F, name)
+
+        def call(x, weight, *args, **kwargs):
+            out = conv(x, weight, *args, **kwargs)
+            entry = dict(name=name, backward=bool(backward), spatial=tuple(x.shape[-2:]),
+                         stride=kwargs.get("stride", 1), x=suggest_memory_format(x),
+                         weight=suggest_memory_format(weight), out=out, grad=[])
+            if out.requires_grad:
+                out.register_hook(lambda grad: entry["grad"].append(suggest_memory_format(grad)))
+            calls.append(entry)
+            return out
+
+        return call
+
+    functional = types.SimpleNamespace(**vars(F))
+    functional.conv2d, functional.conv_transpose2d = recorded("conv2d"), recorded("conv_transpose2d")
+    monkeypatch.setattr(tnet, "F", functional)
+    tnet.reset_conv_transpose_layouts()
+    logits = g(source, torch.Generator().manual_seed(2), logits=True)
+    assert tnet.conv_transpose_layouts == {"channels_last": 6, "other": 0}
+    backward.append(True)
+    logits.square().sum().backward()
+
+    # no transposed convolution reaches cuDNN: each is a forward convolution
+    assert [c["name"] for c in calls] == ["conv2d"] * len(calls)
+    forward = [c for c in calls if not c["backward"]]
+    down, up, head = forward[:6], forward[6:12], forward[12:]
+    assert [c["stride"] for c in down] == [2] * 6 and [c["stride"] for c in up] == [1] * 6
+    assert [c["spatial"] for c in up] == [(1, 1), (2, 2), (4, 4), (8, 8), (16, 16), (32, 32)]
+    for c in down + up:
+        assert torch.channels_last in (c["x"], c["weight"]), c["spatial"]
+    # the up blocks' input gradients (forward convolutions of their output
+    # gradients), NHWC as well
+    up_grads = [c for c in calls if c["backward"] and c["stride"] == 2]
+    assert [c["spatial"] for c in up_grads] == [(64, 64), (32, 32), (16, 16), (8, 8), (4, 4), (2, 2)]
+    assert all(torch.channels_last in (c["x"], c["weight"]) for c in up_grads)
+    (head,) = head
+    assert head["spatial"] == (67, 67)
+    assert head["x"] == head["weight"] == torch.contiguous_format
+    assert head["out"].is_contiguous() and head["grad"] == [torch.contiguous_format]
+    # the indexed losses' kernel takes the logits as NCHW memory viewed NHWC
+    assert logits.permute(0, 3, 1, 2).is_contiguous()
+    assert all(p.is_contiguous() and p.grad.is_contiguous() for p in g.parameters())
+
+
+def _instance_norm_float64(self, x):
+    """InstanceNorm.forward's float32 formula in the input's dtype."""
+    mean = x.mean((2, 3), keepdim=True)
+    var = x.var((2, 3), keepdim=True, unbiased=False)
+    normed = (x - mean) * torch.rsqrt(var + self.eps)
+    return normed * self.scale.view(1, -1, 1, 1) + self.offset.view(1, -1, 1, 1)
+
+
+@pytest.mark.parametrize("variant", ["histogram", "indexed"])
+def test_channels_last_decoder_equals_the_nchw_formulation(variant, monkeypatch):
+    # in float64 throughout (InstanceNorm rounds to float32 otherwise): a
+    # float32 sum in another order can move a pre-activation of ~1e-7
+    # across ReLU's kink, which moves every gradient below it by ~1e-3 of
+    # its norm
+    monkeypatch.setattr(tnet.InstanceNorm, "forward", _instance_norm_float64)
+    g, d, source = _full_width(variant, torch.float64)
+    ref_g, ref_d = copy.deepcopy(g), copy.deepcopy(d)
+    results = []
+    for gen_net, disc_net, forward in ((g, d, functools.partial(g, logits=True)),
+                                      (ref_g, ref_d, functools.partial(_nchw_generator, ref_g))):
+        logits = forward(source, torch.Generator().manual_seed(3))
+        out = torch.tanh(logits) if g.last_activation == "tanh" else torch.softmax(logits, dim=-1)
+        pred = _discriminated(disc_net, out, source)
+        weights = torch.Generator().manual_seed(4)
+        loss = sum((t * torch.randn(t.shape, generator=weights)).sum() for t in (logits, pred))
+        loss.backward()
+        grads = [p.grad for p in (*gen_net.parameters(), *disc_net.parameters())]
+        results.append((logits.detach(), pred.detach(), grads))
+    (logits, pred, grads), (ref_logits, ref_pred, ref_grads) = results
+    # float64 sums in another order
+    torch.testing.assert_close(logits, ref_logits, rtol=1e-10, atol=1e-12)
+    torch.testing.assert_close(pred, ref_pred, rtol=1e-10, atol=1e-12)
+    names = [n for net in (g, d) for n, _ in net.named_parameters()]
+    for name, got, want in zip(names, grads, ref_grads):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-12 * max(scale, 1.0), msg=name)
+
+
+@pytest.mark.parametrize("rows,first_row", [(None, 0), (5, 2)])
+def test_dropout_keeps_the_positions_of_a_contiguous_draw(rows, first_row):
+    block = tnet.UpBlock(16, 8, apply_dropout=True)
+    tnet.init_parameters(block, torch.Generator().manual_seed(5))
+    x = torch.randn((3, 16, 4, 4), generator=torch.Generator().manual_seed(6))
+    x = x.contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        dropped = block(x, tnet.DropoutDraw(torch.Generator().manual_seed(7), rows, first_row))
+        undropped = block(x, deterministic=True)
+    drawn = torch.rand((rows or 3, 8, 8, 8), generator=torch.Generator().manual_seed(7))
+    keep = drawn[first_row:first_row + 3] < 1.0 - tnet.DROPOUT_RATE
+    assert dropped.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(dropped, torch.where(keep, undropped / (1.0 - tnet.DROPOUT_RATE), 0.0))
+
+
+@pytest.mark.parametrize("side", [1, 2, 4, 8])
+@pytest.mark.parametrize("memory_format", [torch.contiguous_format, torch.channels_last])
+def test_k4s2_lowerings_equal_the_convolutions(side, memory_format):
+    """The two autograd Functions built on the subpixel transposed
+    convolution, forward and both gradients, against F.conv_transpose2d and
+    F.conv2d (k4 s2 padding 1) in float64."""
+    g = torch.Generator().manual_seed(side)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64)
+
+    x = draw(3, 6, side, side).contiguous(memory_format=memory_format).requires_grad_()
+    w = draw(6, 5, 4, 4).requires_grad_()
+    cotangent = draw(3, 5, 2 * side, 2 * side)
+    pairs = [(tnet._ConvTransposeK4S2.apply, lambda a, b: F.conv_transpose2d(a, b, stride=2, padding=1),
+              x, cotangent),
+             (tnet._ConvK4S2.apply, lambda a, b: F.conv2d(a, b, stride=2, padding=1),
+              draw(3, 5, 2 * side, 2 * side).contiguous(memory_format=memory_format).requires_grad_(),
+              draw(3, 6, side, side))]
+    for lowered, plain, inp, cot in pairs:
+        got, want = lowered(inp, w), plain(inp, w)
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+        for a, b in zip(torch.autograd.grad(got, (inp, w), cot), torch.autograd.grad(want, (inp, w), cot)):
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)

@@ -105,7 +105,10 @@ def test_backward_ops_land_in_the_bwd_group_of_their_forward_op(profiles, varian
         assert group == roofline.backward_group(attribution.range_of(forward))
         if event.name == "aten::convolution_backward":
             conv[group] += 1
-            assert forward.name in ("aten::convolution", "aten::conv2d", "aten::conv_transpose2d")
+            # the networks' k4 s2 convolutions are autograd Functions
+            # (models/networks.py), whose ranges carry their names
+            assert forward.name in ("aten::convolution", "aten::conv2d", "aten::conv_transpose2d",
+                                    "_ConvK4S2", "_ConvTransposeK4S2")
         if "HistogramCore" in event.name or "FusedHistogram" in event.name:
             assert group == "hist-bwd"
     assert conv == {"G-bwd": 13, "D-bwd": 6 if variant == "histogram" else 2}

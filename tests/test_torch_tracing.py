@@ -49,13 +49,18 @@ LAYERS = {"histogram": {"batch-gather", "augment", "G-fwd", "D-fwd", "hist-fwd",
           "indexed": {"batch-gather", "G-fwd", "D-fwd", "loss", "G-bwd", "D-bwd", "optimizer"}}
 # aten ops a narrow b2 float32 step puts in each group of the frozen
 # attribution, read under the tree whose steps opened only the forward
-# ranges (train/steps.py::named_range)
+# ranges (train/steps.py::named_range), counted again once the networks ran
+# their k4 s2 transposed convolutions as forward convolutions
+# (models/networks.py::conv_transpose_k4s2: the weight's phase layout and
+# the interleave) and the generator's decoder NHWC (its layout copies; the
+# up blocks' NHWC weight gradients copied into the contiguous parameters'
+# strides, unattributed as the down blocks' are)
 OPS_BY_GROUP = {
-    "histogram": {"D-bwd": 150, "D-fwd": 171, "G-bwd": 801, "G-fwd": 589, "augment": 652,
+    "histogram": {"D-bwd": 183, "D-fwd": 171, "G-bwd": 1015, "G-fwd": 668, "augment": 652,
                   "batch-gather": 26, "hist-bwd": 719, "hist-fwd": 596, "loss": 173,
-                  "loss-bwd": 79, "optimizer": 975, "unattributed": 75},
-    "indexed": {"D-bwd": 52, "D-fwd": 116, "G-bwd": 795, "G-fwd": 581, "batch-gather": 36,
-                "loss": 324, "loss-bwd": 136, "optimizer": 975, "unattributed": 68},
+                  "loss-bwd": 79, "optimizer": 975, "unattributed": 87},
+    "indexed": {"D-bwd": 52, "D-fwd": 116, "G-bwd": 1009, "G-fwd": 666, "batch-gather": 36,
+                "loss": 324, "loss-bwd": 136, "optimizer": 975, "unattributed": 80},
 }
 
 
